@@ -11,7 +11,9 @@ the stdlib HTTP server exposes ``POST /api/text_generation`` with
 
 Backpressure maps to HTTP as in the reference: queue full -> 429, prompt
 too long -> 413, bad request fields -> 422, timeout or engine failure ->
-503. SERVER ``port`` may be 0 (any free port; the bound one is printed).
+503. An engine stopped by a kernel failure answers 503 with the reason,
+and ``GET /healthz`` then answers 503 ``{"ready": false, "reason": ...}``.
+SERVER ``port`` may be 0 (any free port; the bound one is printed).
 
 Loading checkpoint weights is not yet ported: PIPELINE ``model`` names a
 LLaMA ``config.json`` (or its directory), the weights are made on the
@@ -29,20 +31,42 @@ from typing import Optional
 
 @dataclasses.dataclass
 class ServerConfig:
+    """Every field of the reference's ``ServerConfig`` (``:75``) loads;
+    those of features not yet ported (fleet phases, drain, evacuation
+    peers, dump bundles, the AOT cache, log levels) raise
+    ``NotImplementedError`` for anything but their defaults."""
+
     host: str = "0.0.0.0"
     port: int = 8000
+    log_level: str = "info"
     engine: str = "continuous"
     warmup: bool = True
     request_timeout_s: float = 120.0
+    phase: str = "both"
+    drain_timeout_s: float = 30.0
+    peers: tuple = ()
+    dump_dir: str = "fstpu_dumps"
     #: None = cuda (raises without a card); "cpu" runs on the CPU
     device: Optional[str] = None
     engine_args: dict = dataclasses.field(default_factory=dict)
+    aot_args: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.engine != "continuous":
             raise NotImplementedError(
                 f"engine {self.engine!r} is not yet ported; the port "
                 "serves through engine 'continuous'")
+        self.peers = tuple(self.peers or ())
+        for f in dataclasses.fields(self):
+            if f.name not in ("log_level", "phase", "drain_timeout_s",
+                              "peers", "dump_dir", "aot_args"):
+                continue
+            default = f.default_factory() if \
+                f.default is dataclasses.MISSING else f.default
+            if getattr(self, f.name) != default:
+                raise NotImplementedError(
+                    f"SERVER {f.name}={getattr(self, f.name)!r} (default "
+                    f"{default!r}) is not yet ported")
 
 
 @dataclasses.dataclass
@@ -57,6 +81,9 @@ def load_config(path: str) -> tuple[ServerConfig, PipelineConfig]:
         raw = json.load(f)
     server = ServerConfig(**raw.get("SERVER", {}))
     server.engine_args = dict(raw.get("ENGINE", {}))
+    if raw.get("AOT"):
+        raise NotImplementedError("the AOT compile cache (config section "
+                                  "AOT) is not yet ported")
     pipe = raw.get("PIPELINE", {})
     pipeline = PipelineConfig(
         task=pipe.get("task", "text_generation"), model=pipe.get("model"),
@@ -92,14 +119,16 @@ def start_continuous_engine(pipeline, engine_args: dict, log=None):
 def _engine_generate(engine, pipeline, req: dict,
                      timeout_s: float) -> tuple[int, dict]:
     """Submit one HTTP request to the engine; returns (status, body)."""
-    from fengshen_tpu_torch.serving import (FINISHED, PromptTooLong,
-                                            QueueFull)
+    from fengshen_tpu_torch.serving import (FINISHED, EngineStopped,
+                                            PromptTooLong, QueueFull)
     rid = req.get("request_id")
     try:
         request = engine.submit(
             pipeline.encode(req["input_text"]),
             max_new_tokens=req.get("max_new_tokens"),
             request_id=None if rid is None else str(rid))
+    except EngineStopped as e:
+        return 503, {"error": str(e), "reason": "engine_stopped"}
     except QueueFull as e:
         return 429, {"error": str(e)}
     except PromptTooLong as e:
@@ -119,6 +148,18 @@ def _engine_generate(engine, pipeline, req: dict,
                  "generated_tokens": len(request.tokens),
                  "ttft_s": request.ttft_s,
                  "finish_reason": request.finish_reason}
+
+
+def _healthz_payload(task: str, engine=None) -> tuple[int, dict]:
+    """The reference's readiness contract (``fengshen_tpu/api/main.py:142``):
+    503 with ``{"ready": false, "reason": ...}`` while the replica must
+    not take traffic (here: its engine stopped after a kernel failure),
+    200 with ``{"ready": true}`` otherwise."""
+    stopped = None if engine is None else engine.stopped_reason()
+    if stopped is not None:
+        return 503, {"status": "stopped", "task": task, "ready": False,
+                     "reason": "engine_stopped", "error": stopped}
+    return 200, {"status": "ok", "task": task, "ready": True}
 
 
 def build_stdlib_server(server_cfg: ServerConfig,
@@ -149,8 +190,7 @@ def build_stdlib_server(server_cfg: ServerConfig,
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._send(200, {"status": "ok", "task": pipeline_cfg.task,
-                                 "ready": True})
+                self._send(*_healthz_payload(pipeline_cfg.task, engine))
             elif self.path == "/stats":
                 if engine is None:
                     self._send(404, {"error": "no engine"})

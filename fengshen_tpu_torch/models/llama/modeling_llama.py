@@ -20,7 +20,11 @@ all equal). Three layouts share the entry point, as in the reference's
   block lists into a shared block pool.
 
 The layers run as a plain loop over ``model.layers`` (the reference's
-``scan_layers`` is only a parameter layout here).
+``scan_layers`` is only a parameter layout here). The cacheless forward
+takes ``attention_impl`` "dense" or "flash" (kernel K1 through
+``ops/flash_attention.py``); with ``gradient_checkpointing`` every layer
+is recomputed in the backward (``torch.utils.checkpoint``), the
+reference's remat policy "nothing".
 """
 
 from __future__ import annotations
@@ -30,11 +34,13 @@ from typing import List, NamedTuple, Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fengshen_tpu_torch.device import resolve_device
 from fengshen_tpu_torch.models.llama.configuration_llama import LlamaConfig
 from fengshen_tpu_torch.ops.attention import dot_product_attention
 from fengshen_tpu_torch.ops.embedding import embed_lookup
+from fengshen_tpu_torch.ops.flash_attention import flash_attention
 from fengshen_tpu_torch.ops.kernels.decode_attention import decode_attention
 from fengshen_tpu_torch.ops.masks import causal_mask
 from fengshen_tpu_torch.ops.norms import RMSNorm
@@ -166,22 +172,30 @@ class LlamaAttention(nn.Module):
             out = decode_attention(q, view.k, view.v, view.valid,
                                    block_table=view.block_table)
         else:
-            if cfg.attention_impl != "dense":
+            if cfg.attention_impl not in ("dense", "flash"):
                 raise NotImplementedError(
-                    f"attention_impl={cfg.attention_impl!r} needs kernel "
-                    "K1 (flash attention), not yet ported; the cacheless "
-                    "forward supports attention_impl='dense'")
+                    f"attention_impl={cfg.attention_impl!r} is not yet "
+                    "ported; the cacheless forward supports 'dense' and "
+                    "'flash'")
             if cfg.packed_sequences:
                 raise NotImplementedError(
                     "packed_sequences is not yet ported")
-            mask = causal_mask(seq, seq, device=hidden.device)[None, None]
-            if attention_mask is not None:
-                mask = mask & attention_mask[:, None, None, :].bool()
-            if n_kv != n_heads:
-                rep = n_heads // n_kv
-                k = k.repeat_interleave(rep, dim=2)
-                v = v.repeat_interleave(rep, dim=2)
-            out = dot_product_attention(q, k, v, mask=mask)
+            if cfg.attention_impl == "flash":
+                # a padding mask maps to segment ids (pads = segment 0),
+                # so padded SFT batches stay on kernel K1, which reads
+                # each KV head once per GQA group
+                seg = None if attention_mask is None else \
+                    attention_mask.to(torch.int32)
+                out = flash_attention(q, k, v, causal=True, segment_ids=seg)
+            else:
+                mask = causal_mask(seq, seq, device=hidden.device)[None, None]
+                if attention_mask is not None:
+                    mask = mask & attention_mask[:, None, None, :].bool()
+                if n_kv != n_heads:
+                    rep = n_heads // n_kv
+                    k = k.repeat_interleave(rep, dim=2)
+                    v = v.repeat_interleave(rep, dim=2)
+                out = dot_product_attention(q, k, v, mask=mask)
         out = out.reshape(batch, seq, n_heads * head_dim)
         return _linear(self.o_proj, out, dt)
 
@@ -302,6 +316,12 @@ class LlamaModel(nn.Module):
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
+        if config.gradient_checkpointing and \
+                config.remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy={config.remat_policy!r} is not yet ported; "
+                "gradient checkpointing recomputes whole layers "
+                "(remat_policy='nothing')")
         self.config = config
         self.embed_tokens = Embed(config.vocab_size, config.hidden_size,
                                   torch_dtype(config.param_dtype))
@@ -313,8 +333,17 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, attention_mask=None, position_ids=None,
                 cache: Optional[KVCache] = None):
         hidden = self.embed_tokens(input_ids, torch_dtype(self.config.dtype))
+        remat = self.config.gradient_checkpointing and cache is None and \
+            torch.is_grad_enabled()
         for layer in self.layers:
-            hidden = layer(hidden, attention_mask, position_ids, cache)
+            if remat:
+                # remat_policy "nothing": keep each layer's input only and
+                # recompute the layer in the backward (nn.remat with
+                # nothing_saveable in the reference)
+                hidden = checkpoint(layer, hidden, attention_mask,
+                                    position_ids, use_reentrant=False)
+            else:
+                hidden = layer(hidden, attention_mask, position_ids, cache)
         if cache is not None:
             cache.advance(input_ids.shape[1])
         return self.norm(hidden)

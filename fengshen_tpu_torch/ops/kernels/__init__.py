@@ -144,6 +144,7 @@ def log_dispatch(log: Optional[Callable[[dict], None]] = None,
 # itself; importing a kernel module builds nothing.
 
 from fengshen_tpu_torch.ops.kernels import decode_attention  # noqa: E402,F401
+from fengshen_tpu_torch.ops.kernels import flash_attention  # noqa: E402,F401
 
 __all__ = ["KernelError", "KernelProbe", "KernelEntry", "probe",
            "register_kernel", "get_entry", "kernel_choice",

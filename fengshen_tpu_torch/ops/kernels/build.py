@@ -140,5 +140,22 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, i32,                    # lane_len bs max_blocks nb
         i32, ptr]                              # dtype code, stream
     lib.fstpu_decode_attention.restype = i32
+    lib.fstpu_flash_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,     # q k v seg_q seg_k out lse
+        i32, i32, i32, i32, i32, i32,          # B Sq Sk H KVH D
+        i32, i32, ptr]                         # causal, dtype code, stream
+    lib.fstpu_flash_fwd.restype = i32
+    lib.fstpu_flash_bwd_dkv.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q k v dout lse delta segs
+        ptr, ptr,                              # dk dv
+        i32, i32, i32, i32, i32, i32,          # B Sq Sk H KVH D
+        i32, i32, ptr]                         # causal, dtype code, stream
+    lib.fstpu_flash_bwd_dkv.restype = i32
+    lib.fstpu_flash_bwd_dq.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q k v dout lse delta segs
+        ptr,                                   # dq
+        i32, i32, i32, i32, i32, i32,          # B Sq Sk H KVH D
+        i32, i32, ptr]                         # causal, dtype code, stream
+    lib.fstpu_flash_bwd_dq.restype = i32
     lib.fstpu_error_string.argtypes = [i32]
     lib.fstpu_error_string.restype = ctypes.c_char_p

@@ -10,6 +10,7 @@ generation defaults (:meth:`engine_config_kwargs`).
 
 from __future__ import annotations
 
+import re
 from typing import Any, Optional
 
 import numpy as np
@@ -18,14 +19,18 @@ from fengshen_tpu_torch.device import check_module_device
 
 
 class IdTokenizer:
-    """Space-separated token ids in and out (``"5 7 9"`` <-> ``[5, 7, 9]``):
-    the stand-in tokenizer while checkpoint tokenizers are not ported."""
+    """Token ids as text (``"5 7 9"`` <-> ``[5, 7, 9]``): the stand-in
+    tokenizer while checkpoint tokenizers are not ported. Any other
+    non-space character encodes as its code point, so prompt templates
+    such as ``"<human>:"`` encode too."""
 
     eos_token_id = None
     pad_token_id = 0
 
-    def encode(self, text: str) -> list:
-        return [int(t) for t in text.split()]
+    def encode(self, text: str, add_special_tokens: bool = True) -> list:
+        del add_special_tokens  # no special tokens to add
+        return [int(t) if t.isdecimal() else ord(t)
+                for t in re.findall(r"\d+|\S", text)]
 
     def decode(self, ids) -> str:
         return " ".join(str(int(t)) for t in ids)

@@ -62,6 +62,11 @@ class PromptTooLong(Exception):
     """Prompt outgrows the bucket ladder or the cache headroom (413)."""
 
 
+class EngineStopped(RuntimeError):
+    """The engine stopped serving after a kernel failure: the API layer
+    maps this to 503, and ``/healthz`` reports the replica not ready."""
+
+
 QUEUED, RUNNING, FINISHED, CANCELLED, EXPIRED, REJECTED = (
     "queued", "running", "finished", "cancelled", "expired", "rejected")
 
@@ -70,9 +75,10 @@ _NOT_PORTED = "not yet ported"
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Engine knobs (``engine.py:123``); the fields of the reference's
-    sampling, logits-control and speculative options are kept so that
-    its configs load, and anything but their defaults raises."""
+    """Engine knobs (``engine.py:123``). Every field of the reference's
+    dataclass is accepted, so its configs load; the sampling,
+    logits-control, speculative and debug-ring options raise
+    ``NotImplementedError`` for anything but their defaults."""
 
     num_slots: int = 8
     buckets: Sequence[int] = DEFAULT_BUCKETS
@@ -94,10 +100,19 @@ class EngineConfig:
     kv_num_blocks: Optional[int] = None      # default: slot-parity + null
     kv_max_blocks_per_slot: Optional[int] = None  # default: max_len/bs
     spec_mode: str = "off"
+    spec_gamma: int = 4                      # drafted tokens per tick
+    spec_ngram: int = 2                      # suffix length to match
+    spec_draft_layers: int = 2               # self-draft tower depth
+    debug_ring: int = 64                     # finished-request timelines
+    journal_ring: int = 256                  # commit-journal entries
 
     def __post_init__(self):
         if self.num_slots < 1:
             raise ValueError("num_slots must be >= 1")
+        if self.debug_ring < 1:
+            raise ValueError("debug_ring must be >= 1")
+        if self.journal_ring < 1:
+            raise ValueError("journal_ring must be >= 1")
         if self.kv_layout not in ("slot", "paged"):
             raise ValueError(f"unknown kv_layout {self.kv_layout!r}; "
                              "expected 'slot' or 'paged'")
@@ -120,6 +135,13 @@ class EngineConfig:
         if self.spec_mode != "off":
             raise NotImplementedError(
                 f"spec_mode={self.spec_mode!r}: {_NOT_PORTED}")
+        for name in ("spec_gamma", "spec_ngram", "spec_draft_layers",
+                     "debug_ring", "journal_ring"):
+            default = type(self).__dataclass_fields__[name].default
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} (default {default!r}): "
+                    f"{_NOT_PORTED}")
         if self.kv_dtype == "int8":
             raise NotImplementedError(f"kv_dtype='int8': {_NOT_PORTED}")
         if self.do_sample:
@@ -262,8 +284,7 @@ class ContinuousBatchingEngine:
         seconds from now; an expired request frees its slot and finishes
         with reason "deadline"."""
         if self._fatal is not None:
-            raise RuntimeError(
-                f"engine stopped after a kernel failure: {self._fatal}")
+            raise EngineStopped(self.stopped_reason())
         if max_new_tokens is not None and int(max_new_tokens) < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -295,6 +316,10 @@ class ContinuousBatchingEngine:
         req = Request(ids, max_new, request_id,
                       None if deadline_s is None else now + deadline_s, now)
         with self._cv:
+            # again under the lock: the serve thread sets _fatal and
+            # exits holding it, and nothing drains the queue after that
+            if self._fatal is not None:
+                raise EngineStopped(self.stopped_reason())
             if len(self._queue) >= self.config.max_queue:
                 self.metrics.count("rejected_queue_full")
                 self._log({"event": "serving_reject",
@@ -542,12 +567,15 @@ class ContinuousBatchingEngine:
                 with self._cv:
                     self._last_error = {"type": type(e).__name__,
                                         "at": self._clock()}
-                    self._reset_pool_locked()
                     if isinstance(e, KernelError):
                         # a kernel that failed to build or launch does
                         # not get better: stop serving instead of failing
-                        # every later request the same way
+                        # every later request the same way (set before
+                        # the in-flight work fails, so a retry that
+                        # follows its 503 finds the engine stopped)
                         self._fatal = e
+                    self._reset_pool_locked()
+                    if self._fatal is not None:
                         return
                 n = 0
             if n == 0:
@@ -630,6 +658,14 @@ class ContinuousBatchingEngine:
             "kv_cache_bytes": self._kv_bytes,
             "kv_fragmentation": (1.0 - used_tokens / alloc_tokens
                                  if alloc_tokens else 0.0)}
+
+    def stopped_reason(self) -> Optional[str]:
+        """Why the engine stopped serving for good (a kernel failure), or
+        None while it serves."""
+        if self._fatal is None:
+            return None
+        return (f"engine stopped after a kernel failure: "
+                f"{type(self._fatal).__name__}: {self._fatal}")
 
     def stats(self) -> dict:
         with self._cv:

@@ -1,6 +1,7 @@
 """The port stands alone: it imports torch, never jax, flax or the JAX
 package (``fengshen_tpu``, matched as the exact top-level name: the
-port's own name starts with it), and its entry points run on the card
+port's own name starts with it), nor ``transformers`` or ``datasets``
+(the card's machine has neither), and its entry points run on the card
 unless the caller asks for the CPU."""
 
 import ast
@@ -14,7 +15,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "fengshen_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "fengshen_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "fengshen_tpu", "transformers",
+             "datasets"}
 
 
 def _port_files():
@@ -89,6 +91,10 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):
          "PIPELINE": {"model": str(tmp_path / "model")}}))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--config", str(server_cfg)])
+    from fengshen_tpu_torch.examples.ziya_llama.finetune_ziya_llama import \
+        main as finetune_main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        finetune_main(["--model_path", str(tmp_path / "model")])
     # a model asked for on the CPU runs there
     out = generate(model, [[5, 6]], max_new_tokens=2, device="cpu")
     assert out.shape == (1, 4)

@@ -231,6 +231,128 @@ def test_engine_backpressure_and_config_gates(port_model):
         EngineConfig(kv_layout="ring")
 
 
+def test_reference_config_fields_all_load():
+    """Every field of the reference's ``EngineConfig`` and
+    ``ServerConfig`` is a field of the port's; the reference's defaults
+    load, and a value other than the default of a feature the port lacks
+    raises ``NotImplementedError`` (never ``TypeError``)."""
+    import dataclasses
+
+    from fengshen_tpu.api.main import ServerConfig as JaxServerConfig
+    from fengshen_tpu.serving.engine import EngineConfig as JaxEngineConfig
+    for ref_cls, port_cls in ((JaxEngineConfig, EngineConfig),
+                              (JaxServerConfig, ServerConfig)):
+        ref = {f.name for f in dataclasses.fields(ref_cls)}
+        port = {f.name for f in dataclasses.fields(port_cls)}
+        assert ref <= port, sorted(ref - port)
+    EngineConfig(**dataclasses.asdict(JaxEngineConfig()))
+    defaults = dataclasses.asdict(JaxServerConfig())
+    defaults.pop("engine")                  # the reference's is "simple"
+    ServerConfig(**defaults)
+    for kw in (dict(spec_gamma=6), dict(spec_ngram=3),
+               dict(spec_draft_layers=4), dict(debug_ring=8),
+               dict(journal_ring=16)):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            EngineConfig(**kw)
+    for kw in (dict(phase="prefill"), dict(drain_timeout_s=5.0),
+               dict(peers=("http://a:1",)), dict(dump_dir="/tmp/x"),
+               dict(log_level="debug"), dict(aot_args={"cache_dir": "d"})):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            ServerConfig(**kw)
+
+
+def test_reference_config_file_loads(tmp_path):
+    """A config written for ``fengshen_tpu.api.main`` naming the
+    reference-only fields at their defaults loads."""
+    from fengshen_tpu_torch.api.main import load_config
+    path = tmp_path / "server.json"
+    path.write_text(json.dumps({
+        "SERVER": {"host": "127.0.0.1", "port": 0, "engine": "continuous",
+                   "log_level": "info", "phase": "both",
+                   "drain_timeout_s": 30.0, "dump_dir": "fstpu_dumps"},
+        "ENGINE": {"num_slots": 2, "spec_mode": "off", "spec_gamma": 4,
+                   "spec_ngram": 2, "debug_ring": 64, "journal_ring": 256},
+        "PIPELINE": {"task": "text_generation", "model": "m"}}))
+    server, pipeline = load_config(str(path))
+    assert EngineConfig(**server.engine_args).spec_gamma == 4
+    assert pipeline.model == "m"
+
+
+def test_stopped_engine_answers_503_and_reports_unready(port_model,
+                                                       monkeypatch):
+    """A kernel entry that raises stops the engine: the request in flight
+    and every later one answer 503 with a reason, and ``/healthz``
+    answers 503 ``{"ready": false, "reason": ...}`` (the reference's
+    readiness contract)."""
+    from fengshen_tpu_torch.models.llama import modeling_llama
+    from fengshen_tpu_torch.ops.kernels import KernelError
+    pipe = Pipeline(module=port_model, tokenizer=IdTokenizer(),
+                    max_new_tokens=4, device="cpu")
+    engine = start_continuous_engine(pipe, {"num_slots": 2,
+                                            "buckets": (8,)})
+
+    def broken(*args, **kwargs):
+        raise KernelError("injected launch failure")
+
+    monkeypatch.setattr(modeling_llama, "decode_attention", broken)
+    server = build_stdlib_server(
+        ServerConfig(host="127.0.0.1", port=0, device="cpu"),
+        PipelineConfig(task="text_generation"), pipeline=pipe,
+        engine=engine)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        for _ in range(2):          # the request in flight, then a new one
+            with pytest.raises(urllib.error.HTTPError) as exc:
+                _post(port, {"input_text": "5 7 9"}, timeout=30)
+            assert exc.value.code == 503
+        body = json.loads(exc.value.read())
+        assert body["reason"] == "engine_stopped"
+        assert "injected launch failure" in body["error"]
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                   timeout=10)
+        assert exc.value.code == 503
+        health = json.loads(exc.value.read())
+        assert health["ready"] is False
+        assert health["reason"] == "engine_stopped"
+        assert "KernelError" in health["error"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def test_stopped_engine_refuses_the_request_after_the_failure(
+        port_model, monkeypatch):
+    """The engine is marked stopped before the in-flight request fails,
+    so a retry sent as soon as that request finishes is refused, never
+    queued behind a serve thread that has exited."""
+    from fengshen_tpu_torch.models.llama import modeling_llama
+    from fengshen_tpu_torch.ops.kernels import KernelError
+    from fengshen_tpu_torch.serving import EngineStopped
+    pipe = Pipeline(module=port_model, tokenizer=IdTokenizer(),
+                    max_new_tokens=4, device="cpu")
+    engine = start_continuous_engine(pipe, {"num_slots": 2,
+                                            "buckets": (8,)})
+
+    def broken(*args, **kwargs):
+        raise KernelError("injected launch failure")
+
+    monkeypatch.setattr(modeling_llama, "decode_attention", broken)
+    try:
+        req = engine.submit([5, 7, 9])
+        assert req.wait(timeout=30)
+        assert req.finish_reason == "engine_error"
+        with pytest.raises(EngineStopped, match="injected launch failure"):
+            engine.submit([5, 7, 9])
+    finally:
+        engine.stop()
+
+
 def _post(port, payload, timeout=60):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/api/text_generation",
