@@ -28,7 +28,19 @@ Phases (each raises on failure, so any failure exits non-zero):
    layers (fp32 master weights, bf16 compute, flash attention through K1,
    gradient checkpointing, AdamW) for 6 steps over one repeated batch
    of 4 x 1024 tokens; counts set to 0 just before and read just after;
-   step 1 held to the same step with the plain attention.
+   step 1 held to the same step with the plain attention;
+9. long-context training path: ``configs/long_context_32k.json`` at full
+   width and its full 32768-token window, cut to 4 layers, through the
+   kernel bench's ``long_context_fit`` (``Trainer.fit``,
+   ``CausalLMModule`` with the fused LM-head CE through K2, ring
+   attention on one device through K1, remat ``dots_no_batch``, bf16
+   AdamW) for 3 steps; counts set to 0 just before and read just after;
+   step 1 held to the same step with K2's plain version, which planted
+   K2 faults must fail.
+
+Phase 3 also holds K2 (fused LM-head cross-entropy: forward, dx, dK) to
+its plain version at the long-context path's shape (T = 32767 tokens,
+H = 4096, V = 32000, bf16), with planted faults.
 
 It prints one line per phase, then a ``{"kernels": [...]}`` JSON line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a card,
@@ -116,6 +128,38 @@ TRAIN_ATTN_GRAD_RTOL = 1e-3
 ATTN_PROJ = ("q_proj", "k_proj", "v_proj", "o_proj")
 K1_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkv",
             "flash_attention_bwd_dq")
+
+K2_NAMES = ("fused_ce_fwd", "fused_ce_bwd_dx", "fused_ce_bwd_dk")
+#: K2 at the long-context path's shape: one row of 32768 tokens after
+#: the shift by one, hidden 4096, vocab 32000
+CE_TOKENS, CE_HIDDEN, CE_VOCAB = 32767, 4096, 32000
+#: K2 against its plain version run in fp32 on the same bf16 inputs.
+#: lse and gold are fp32 sums of the same 4096 exact products in another
+#: order (~1e-6 here): each within CE_STAT_ATOL, which dropping one vocab
+#: tile (128 of 32000 columns) from a token's stats exceeds ~40-fold.
+#: dx and dK are rounded to bf16 (2^-8 relative): each element within
+#: K1_RTOL x (|want| + rms of want's row) + 1e-4 x want's rms, each
+#: tensor within K1_L2_TOL relative L2 of autograd through fp32 logits.
+#: argmax: exact except where the top two scores lie within
+#: CE_ARGMAX_MARGIN (fp32 sums in another order)
+CE_STAT_ATOL = 1e-4
+CE_ARGMAX_MARGIN = 1e-4
+#: long-context phase (9): layers kept of 32, steps
+LONG_LAYERS, LONG_STEPS = 4, 3
+#: step 1 with K2 against step 1 with K2's plain version in fp32 on the
+#: same bf16 inputs (same weights, same batch, the rest of the step the
+#: same code): the loss within LONG_LOSS_RTOL; the head gradient and the
+#: last layer's o_proj / down_proj gradients within LONG_GRAD_RTOL
+#: relative L2. Both round dx and dK to bf16 from fp32 sums in another
+#: order, so a few elements move one bf16 ulp; a K2 fault that drops one
+#: token tile of dK or of dx moves them by ~sqrt(128 / 32767) = 6 %
+LONG_LOSS_RTOL = 1e-5
+LONG_GRAD_RTOL = 1e-2
+LONG_GRADS = ("lm_head.weight",
+              f"model.layers.{LONG_LAYERS - 1}.self_attn.o_proj.weight",
+              f"model.layers.{LONG_LAYERS - 1}.mlp.down_proj.weight")
+#: the token tile a planted K2 fault leaves out
+CE_TILE = 128
 
 NEW_TOKENS = 32
 PROMPT_LENGTHS = (5, 40, 64, 65, 100, 130, 200, 300)   # buckets 64..512
@@ -989,6 +1033,443 @@ def phase_training(workdir: Path):
     return launches
 
 
+# -- phase 3, K2 -----------------------------------------------------------
+
+def ce_bounds(n_tok, hid, vocab, elt):
+    """Least time of each K2 kernel on these inputs: bytes (each input
+    read once, each output written once) over the HBM rate, against the
+    flops over the bf16 tensor-core rate; the larger bounds it. fwd: the
+    scores (2 T V H). dx: the scores again and d K^T (4 T V H), from x,
+    K, labels, lse and the two cotangents. dK: x^T d (2 T V H) from x and
+    the fp32 d that K2-dx leaves (this design's dK kernel does not
+    recompute the scores)."""
+    xb, wb, rows = n_tok * hid * elt, hid * vocab * elt, n_tok * 4
+    pass_flops = 2.0 * n_tok * vocab * hid
+    work = {"fwd": (xb + wb + rows + 3 * rows, pass_flops),
+            "dx": (xb + wb + 4 * rows + xb, 2 * pass_flops),
+            "dk": (xb + n_tok * vocab * 4 + wb, pass_flops)}
+    out = {}
+    for name, (moved, flops) in work.items():
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def ce_top2_gap(xf, wf, chunk=4096):
+    """The gap between each token's two largest fp32 scores."""
+    import torch
+    gaps = []
+    for t0 in range(0, xf.shape[0], chunk):
+        top = (xf[t0:t0 + chunk] @ wf).topk(2, -1).values
+        gaps.append(top[:, 0] - top[:, 1])
+    return torch.cat(gaps)
+
+
+def ce_case(gen):
+    """K2's operands at the long-context shape: x like final-norm hidden
+    states (unit rms), the head at the config's initializer range 0.02,
+    bf16; labels uniform over the vocab, about 3 % ignored (-100) and 10 %
+    set to the fp32 argmax, so that n_correct carries signal."""
+    import torch
+    from fengshen_tpu_torch.ops.kernels.fused_ce import torch_ce_token_stats
+    x = torch.randn(CE_TOKENS, CE_HIDDEN, generator=gen,
+                    device="cuda").bfloat16()
+    w = (torch.randn(CE_HIDDEN, CE_VOCAB, generator=gen, device="cuda") *
+         0.02).bfloat16()
+    labels = torch.randint(0, CE_VOCAB, (CE_TOKENS,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    u = torch.rand(CE_TOKENS, generator=gen, device="cuda")
+    amax = torch_ce_token_stats(x.float(), w.float(), labels)[2]
+    labels = torch.where(u < 0.10, amax, labels)
+    labels = torch.where(u > 0.97, -100, labels).int().contiguous()
+    return x, w, labels
+
+
+def time_ce_backward(x, w, labels, lse, c_lse, c_gold):
+    """Milliseconds of all K2-dx and of all K2-dK launches of one
+    backward (CUDA events around each launch)."""
+    import torch
+    from fengshen_tpu_torch.ops.kernels import fused_ce as k2
+    n_tok = x.shape[0]
+    d = torch.empty(min(k2.BWD_CHUNK, n_tok), w.shape[1],
+                    dtype=torch.float32, device="cuda")
+    total = torch.empty(w.shape, dtype=torch.float32, device="cuda")
+    dx, dk = torch.empty_like(x), torch.empty_like(w)
+    events = []
+    for i, t0 in enumerate(range(0, n_tok, k2.BWD_CHUNK)):
+        sl = slice(t0, min(t0 + k2.BWD_CHUNK, n_tok))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        k2.cuda_ce_bwd_dx(x[sl], w, labels[sl], lse[sl], c_lse[sl],
+                          c_gold[sl], d, dx[sl])
+        ev[1].record()
+        k2.cuda_ce_bwd_dk(x[sl], d, total,
+                          dk if sl.stop == n_tok else None, first=i == 0)
+        ev[2].record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    return (sum(e[0].elapsed_time(e[1]) for e in events),
+            sum(e[1].elapsed_time(e[2]) for e in events))
+
+
+def phase_ce_kernels():
+    """K2 against its plain version at the long-context shape (T =
+    32767, H = 4096, V = 32000, bf16). The plain versions run in fp32 on
+    the same bf16 inputs (the kernels keep fp32 scores; the plain
+    version run in bf16 rounds them); the backward's take the kernel's
+    lse and the loss's cotangents. The check is also shown to reject
+    planted faults: the last vocab tile left out of the forward stats of
+    one token in 97 and of every token labelled in that tile, and one
+    128-token tile left out of dK. Times of
+    the kernels, the plain versions on the kernels' (bf16) inputs and
+    torch's materialised-logits CE (forward, and its autograd backward,
+    which gives dx and dK in one call)."""
+    import torch
+    import torch.nn.functional as F
+    from fengshen_tpu_torch.ops.kernels import fused_ce as k2
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, w, labels = ce_case(gen)
+    valid = labels != -100
+    n_valid = int(valid.sum())
+    c_lse = valid.float() / n_valid
+    c_gold = -c_lse
+    # the memory the kernels add above their inputs: their outputs, the
+    # fp32 d workspace and the fp32 dK sum; [T, V] fp32 logits would be
+    # 4.2 GB alone
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lse, gold, amax = k2.cuda_ce_fwd(x, w, labels)
+    dx, dk = k2.kernel_ce_backward(x, w, labels, lse, c_lse, c_gold)
+    torch.cuda.synchronize()
+    added_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    loss, k_valid, k_correct = k2.kernel_fused_ce(x[None], w, labels[None])
+    torch.cuda.synchronize()
+    xf, wf = x.float(), w.float()
+    ref_lse, ref_gold, ref_amax = k2.torch_ce_token_stats(xf, wf, labels)
+    ref_dx = k2.torch_ce_bwd_dx(xf, wf, labels, lse, c_lse, c_gold)
+    ref_dk = k2.torch_ce_bwd_dk(xf, wf, labels, lse, c_lse, c_gold)
+    failures, report = [], {"kernels_added_gib": added_gib}
+    for name, got in (("lse", lse), ("gold", gold), ("dx", dx), ("dk", dk)):
+        if not torch.isfinite(got.float()).all():
+            failures.append(f"K2 {name}: non-finite")
+    stat_err = {n: (got - want).abs().max().item() for n, got, want in (
+        ("lse", lse, ref_lse), ("gold", gold, ref_gold))}
+    report["stat_max_abs_err"] = stat_err
+    if max(stat_err.values()) > CE_STAT_ATOL:
+        failures.append(f"K2 forward stats: {stat_err}")
+    # argmax: every disagreement must be a near-tie
+    gap = ce_top2_gap(xf, wf)
+    wrong = amax != ref_amax
+    report["argmax_disagreements"] = int(wrong.sum())
+    report["argmax_worst_gap"] = gap[wrong].max().item() if wrong.any() \
+        else 0.0
+    if wrong.any() and report["argmax_worst_gap"] >= CE_ARGMAX_MARGIN:
+        failures.append(f"K2 argmax: a disagreement at a top-2 gap of "
+                        f"{report['argmax_worst_gap']}")
+    ref_correct = int(((ref_amax == labels) & valid).sum())
+    near = int((wrong & valid & ((labels == amax) |
+                                 (labels == ref_amax))).sum())
+    report.update(n_valid=int(k_valid), n_correct=int(k_correct),
+                  plain_n_correct=ref_correct, near_tie_label_hits=near)
+    if int(k_valid) != n_valid or abs(int(k_correct) - ref_correct) > near:
+        failures.append(f"K2 counts: n_valid {int(k_valid)} / {n_valid}, "
+                        f"n_correct {int(k_correct)} / {ref_correct}")
+    ref_loss = (((ref_lse - ref_gold) * valid).sum() / n_valid).item()
+    report["loss"], report["plain_loss"] = loss.item(), ref_loss
+    # gradients: element-wise against the plain version on the kernel's
+    # lse; relative L2 against autograd through fp32 logits
+    xa, wa = (t.clone().requires_grad_(True) for t in (xf, wf))
+    auto = torch.autograd.grad(F.cross_entropy(
+        xa @ wa, labels.long(), ignore_index=-100), (xa, wa))
+    del xa, wa
+    for name, got, want, ref in (("dx", dx, ref_dx, auto[0]),
+                                 ("dk", dk, ref_dk, auto[1])):
+        reading = k1_reading(got, want.float())
+        reading["rel_l2_autograd"] = ((got.float() - ref).norm() /
+                                      ref.norm()).item()
+        report[name] = reading
+        if reading["worst"] > 1.0 or reading["rel_l2_autograd"] > K1_L2_TOL:
+            failures.append(f"K2 {name}: {reading}")
+    # planted faults
+    planted = {}
+    # one token in 97, and every token whose label lies in the last tile
+    rows = torch.arange(CE_TOKENS, device="cuda")
+    rows = rows[(rows % 97 == 0) | (labels >= CE_VOCAB - CE_TILE)]
+    cut = wf[:, :CE_VOCAB - CE_TILE]
+    s_cut = xf[rows] @ cut
+    lab = labels[rows].long()
+    inside = (lab >= 0) & (lab < cut.shape[1])
+    faults = {"lse": torch.logsumexp(s_cut, -1),
+              "gold": torch.where(inside, s_cut.gather(
+                  1, lab.clamp(0, cut.shape[1] - 1)[:, None])[:, 0], 0.0)}
+    for name, got, want in (("lse", lse, ref_lse), ("gold", gold, ref_gold)):
+        mutant = got.clone()
+        mutant[rows] = faults[name]
+        planted[f"{name}_last_vocab_tile"] = \
+            (mutant - want).abs().max().item() / CE_STAT_ATOL
+    t0 = CE_TOKENS // 2
+    tile = slice(t0, t0 + CE_TILE)
+    d_tile = k2._plain_d(xf[tile], wf, labels[tile], lse[tile], c_lse[tile],
+                         c_gold[tile])
+    mutant = (dk.float() - xf[tile].T @ d_tile).to(dk.dtype)
+    planted["dk_token_tile"] = k1_reading(mutant, ref_dk.float())
+    planted["dk_token_tile"]["rel_l2_autograd"] = (
+        (mutant.float() - auto[1]).norm() / auto[1].norm()).item()
+    del mutant, d_tile, s_cut, auto, ref_dx, ref_dk
+    for key, reading in planted.items():
+        worst = reading if isinstance(reading, float) else reading["worst"]
+        if worst <= 1.0:
+            failures.append(f"K2 planted {key}: the check gave {reading}")
+    report["planted"] = planted
+    # times: the kernels, the plain versions on the kernels' inputs, and
+    # torch's materialised-logits CE
+    ms = {"fused_ce_fwd": cuda_ms(lambda: k2.cuda_ce_fwd(x, w, labels), 2)}
+    runs = [time_ce_backward(x, w, labels, lse, c_lse, c_gold)
+            for _ in range(2)]
+    ms["fused_ce_bwd_dx"] = sum(r[0] for r in runs) / len(runs)
+    ms["fused_ce_bwd_dk"] = sum(r[1] for r in runs) / len(runs)
+    plain_ms = {
+        "fused_ce_fwd": cuda_ms(
+            lambda: k2.torch_ce_token_stats(x, w, labels), 2),
+        "fused_ce_bwd_dx": cuda_ms(lambda: k2.torch_ce_bwd_dx(
+            x, w, labels, lse, c_lse, c_gold), 2),
+        "fused_ce_bwd_dk": cuda_ms(lambda: k2.torch_ce_bwd_dk(
+            x, w, labels, lse, c_lse, c_gold), 2)}
+    xl, wl = (t.clone().requires_grad_(True) for t in (x, w))
+    lab64 = labels.long()
+
+    def library_loss():
+        return F.cross_entropy(F.linear(xl, wl.T).float(), lab64,
+                               ignore_index=-100)
+
+    lib_fwd = cuda_ms(library_loss, 3)
+    out = library_loss()
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, (xl, wl),
+                                                  retain_graph=True), 3)
+    del out, xl, wl
+    bounds = ce_bounds(CE_TOKENS, CE_HIDDEN, CE_VOCAB, x.element_size())
+    rows_out = {}
+    for name, key, lib, err in (
+            ("fused_ce_fwd", "fwd", lib_fwd, max(stat_err.values())),
+            ("fused_ce_bwd_dx", "dx", lib_bwd, report["dx"]["max_abs_err"]),
+            ("fused_ce_bwd_dk", "dk", lib_bwd, report["dk"]["max_abs_err"])):
+        rows_out[name] = dict(ms=ms[name], plain_ms=plain_ms[name],
+                              library_ms=lib, bound_ms=bounds[key][0],
+                              bound_by=bounds[key][1], max_abs_err=err)
+    say("kernel", name="fused_ce", tokens=CE_TOKENS, hidden=CE_HIDDEN,
+        vocab=CE_VOCAB, dtype="bfloat16", bwd_chunk=k2.BWD_CHUNK,
+        stat_atol=CE_STAT_ATOL, rtol=K1_RTOL, l2_tol=K1_L2_TOL,
+        argmax_margin=CE_ARGMAX_MARGIN, **report, times_ms=ms,
+        plain_ms=plain_ms, library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+        bound_ms={k: b[0] for k, b in bounds.items()},
+        bound_by={k: b[1] for k, b in bounds.items()},
+        fraction_of_bound={n: r["bound_ms"] / r["ms"]
+                           for n, r in rows_out.items()})
+    del x, w, labels, xf, wf, lse, gold, amax, dx, dk, ref_lse, ref_gold
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rows_out
+
+
+# -- phase 9 ------------------------------------------------------------
+
+def grad_rel_named(got: dict, want: dict) -> dict:
+    return {n: ((got[n].float() - w.float()).norm() /
+                w.float().norm()).item() for n, w in want.items()}
+
+
+def planted_ce_faults():
+    """Faults planted in K2's backward for the long-context step's check:
+    name -> (wrapper, patch). ``dk_token_tile``: the first chunk's first
+    128 tokens left out of dK; ``dx_token_tile``: their dx zero."""
+    from fengshen_tpu_torch.ops.kernels import fused_ce as k2
+    real_dx, real_dk = k2.cuda_ce_bwd_dx, k2.cuda_ce_bwd_dk
+
+    def dk_token_tile(x, d, total, dk=None, first=True):
+        if first:
+            d[:CE_TILE].zero_()
+        return real_dk(x, d, total, dk, first)
+
+    calls = []
+
+    def dx_token_tile(*a, **kw):
+        dx = real_dx(*a, **kw)
+        if not calls:
+            dx[:CE_TILE].zero_()
+        calls.append(1)
+        return dx
+
+    return {"dk_token_tile": ("cuda_ce_bwd_dk", dk_token_tile),
+            "dx_token_tile": ("cuda_ce_bwd_dx", dx_token_tile)}
+
+
+#: kernel-name fragments -> the group a profiled kernel's time goes to
+PROFILE_GROUPS = (("K1 flash attention", ("flash_",)),
+                  ("K2 fused CE", ("ce_fwd_kernel", "ce_d_kernel",
+                                   "ce_dx_kernel", "ce_dk_kernel")),
+                  ("GEMMs", ("gemm", "nvjet", "cutlass", "sm90_xmma")))
+
+
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``: its result, plus the wall time,
+    the device-busy time (sum of kernel times; one stream), the idle
+    share, the kernel time by PROFILE_GROUPS and the eight kernels that
+    take most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            kernels[ev.name] = kernels.get(ev.name, 0) + \
+                ev.time_range.elapsed_us() / 1e3
+    busy = sum(kernels.values())
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    groups["other"] = 0.0
+    for kname, ms in kernels.items():
+        group = next((g for g, keys in PROFILE_GROUPS
+                      if any(k in kname for k in keys)), "other")
+        groups[group] += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return (*out, {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy if kernels else "not measured: no device "
+        "events", "device_idle_share": 1 - busy / wall_ms if kernels else
+        "not measured", "group_ms": groups,
+        "top_kernels_ms": {k[:80]: v for k, v in top}})
+
+
+def phase_long_context(workdir: Path):
+    """The long-context path on the card: ``configs/long_context_32k.json``
+    at full width and window, cut to LONG_LAYERS layers, through the
+    kernel bench's ``long_context_fit`` for LONG_STEPS steps (K1 through
+    ring attention on one device, K2 through CausalLMModule). Then step
+    1 again from the same seed and batch with K2 (under the profiler:
+    where a step's device time goes), with K2's plain version in fp32 on
+    the same bf16 inputs, and with faults planted in K2's backward."""
+    import torch
+    from unittest import mock
+    from fengshen_tpu_torch.data import UniversalDataModule
+    from fengshen_tpu_torch.ops.fused_ce import fused_lm_head_ce
+    from fengshen_tpu_torch.ops.kernels import (bench, get_entry,
+                                                reset_launch_counts)
+    from fengshen_tpu_torch.ops.kernels import fused_ce as k2
+    from fengshen_tpu_torch.trainer import Trainer
+    from fengshen_tpu_torch.trainer import modules as train_modules
+
+    config = dataclasses.replace(bench.long_context_config(),
+                                 num_hidden_layers=LONG_LAYERS)
+    seq = config.max_position_embeddings
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    trainer, state, module, wall = bench.long_context_fit(
+        config, "cuda", root=str(workdir / "long_context"),
+        steps=LONG_STEPS, batch=1)
+    launches = {n: get_entry(n).launches for n in K1_NAMES + K2_NAMES}
+    peak = torch.cuda.max_memory_allocated()
+    steps = [e for e in trainer.history if "loss" in e]
+    n_params = trainer.history[0]["n_params"]
+    args = trainer.args
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    losses = [e["loss"] for e in steps]
+    chunks = -(-(seq - 1) // k2.BWD_CHUNK)
+    want = {"flash_attention_fwd": 2 * LONG_LAYERS * LONG_STEPS,
+            "flash_attention_bwd_dkv": LONG_LAYERS * LONG_STEPS,
+            "flash_attention_bwd_dq": LONG_LAYERS * LONG_STEPS,
+            "fused_ce_fwd": LONG_STEPS,
+            "fused_ce_bwd_dx": chunks * LONG_STEPS,
+            "fused_ce_bwd_dk": chunks * LONG_STEPS}
+    failures = []
+    if len(steps) != LONG_STEPS or not all(math.isfinite(x) for x in losses):
+        failures.append(f"long context: losses {losses}")
+    if launches != want:
+        failures.append(f"long context: launches {launches}, want {want}")
+
+    # step 1 again: same seed, same first batch
+    rows = bench.long_context_rows(config.vocab_size, seq, LONG_STEPS + 1)
+    batch = next(iter(UniversalDataModule(
+        args=args, datasets={"train": rows}).train_dataloader()))
+    ref_trainer = Trainer(args)
+    batch = ref_trainer._to_device(batch)
+    grad_step = ref_trainer._make_grad_step(module)
+    params = dict(module.model.named_parameters())
+
+    def step1():
+        module.init_params(torch.Generator(device="cuda").manual_seed(
+            args.seed))
+        loss = float(grad_step(batch)["loss"])
+        return loss, {n: params[n].grad.detach().clone() for n in LONG_GRADS}
+
+    def plain_ce(hidden, kernel, labels, num_chunks=8, ignore_index=-100):
+        return fused_lm_head_ce(hidden.float(), kernel.float(), labels,
+                                num_chunks=num_chunks,
+                                ignore_index=ignore_index)
+
+    k_loss, k_grads, breakdown = profiled(step1)
+    with mock.patch.object(train_modules, "fused_ce_loss", plain_ce):
+        p_loss, p_grads = step1()
+    fault_rel = {}
+    for fault, (wrapper, patch) in planted_ce_faults().items():
+        with mock.patch.object(k2, wrapper, patch):
+            fault_rel[fault] = grad_rel_named(step1()[1], p_grads)
+    rel = grad_rel_named(k_grads, p_grads)
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    del module, grad_step, params, k_grads, p_grads, batch, ref_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step_s = [e["step_time_s"] for e in steps]
+    steady = step_s[1:]
+    tokens_per_s = seq * len(steady) / sum(steady)
+    say("long_context", config="configs/long_context_32k.json",
+        layers=LONG_LAYERS, hidden=config.hidden_size,
+        heads=config.num_attention_heads,
+        kv_heads=config.num_key_value_heads, vocab=config.vocab_size,
+        seq=seq, batch=1, dtype=config.dtype,
+        attention_impl=config.attention_impl,
+        remat_policy=config.remat_policy,
+        fused_ce_chunks=config.fused_ce_chunks, params=n_params,
+        steps=LONG_STEPS, losses=losses, accs=[e["acc"] for e in steps],
+        grad_norms=[e["grad_norm"] for e in steps], step_s=step_s,
+        steady_step_s=sum(steady) / len(steady), tokens_per_s=tokens_per_s,
+        mfu_bf16=steps[-1]["flops_per_token"] * tokens_per_s / BF16_FLOPS,
+        flops_per_token=steps[-1]["flops_per_token"], wall_s=wall,
+        max_memory_allocated_gib=peak / 2**30, launches=launches,
+        step1_fit_loss=losses[0] if losses else None, step1_k2_loss=k_loss,
+        step1_plain_loss=p_loss, loss_rel_diff=loss_rel,
+        loss_rtol=LONG_LOSS_RTOL, grad_rel_diff=rel,
+        grad_rtol=LONG_GRAD_RTOL, planted_fault_grad_rel_diff=fault_rel,
+        step1_profile=breakdown)
+    if loss_rel > LONG_LOSS_RTOL or max(rel.values()) > LONG_GRAD_RTOL:
+        failures.append(f"long context: step 1 with K2 against its plain "
+                        f"version: loss {loss_rel}, grads {rel}")
+    caught = {f: max(r.values()) > LONG_GRAD_RTOL
+              for f, r in fault_rel.items()}
+    if not all(caught.values()):
+        failures.append(f"long context: a planted K2 fault passed the "
+                        f"check: {fault_rel}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1013,6 +1494,7 @@ def main() -> int:
     build_s = phase_build()
     rows = phase_kernels()
     k1_rows = phase_flash_kernels()
+    k2_rows = phase_ce_kernels()
     model, pipe, prompts, runs, launches = phase_main_path()
     phase_teacher_forced(model, prompts, runs)
     phase_profile(pipe, prompts)
@@ -1022,6 +1504,7 @@ def main() -> int:
     phase_fp32_serving(prompts)
     with tempfile.TemporaryDirectory() as tmp:
         k1_launches = phase_training(Path(tmp))
+        long_launches = phase_long_context(Path(tmp))
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     main_row = rows[("paged", 1)]
@@ -1037,6 +1520,14 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": e.source,
             "replaces": e.replaces, "launches": k1_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name in K2_NAMES:
+        e, r = get_entry(name), k2_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": e.source,
+            "replaces": e.replaces, "launches": long_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

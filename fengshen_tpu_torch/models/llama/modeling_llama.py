@@ -21,20 +21,25 @@ all equal). Three layouts share the entry point, as in the reference's
 
 The layers run as a plain loop over ``model.layers`` (the reference's
 ``scan_layers`` is only a parameter layout here). The cacheless forward
-takes ``attention_impl`` "dense" or "flash" (kernel K1 through
-``ops/flash_attention.py``); with ``gradient_checkpointing`` every layer
-is recomputed in the backward (``torch.utils.checkpoint``), the
-reference's remat policy "nothing".
+takes ``attention_impl`` "dense", "flash" (kernel K1 through
+``ops/flash_attention.py``) or, on one device, "ring", "ulysses" and
+"sequence" (flash attention over repeated KV heads, as the reference
+falls back to it). With ``gradient_checkpointing`` every layer is
+recomputed in the backward (``torch.utils.checkpoint``) under the
+reference's remat policy "nothing", or "dots_no_batch", which keeps the
+projections' outputs (a selective checkpoint).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from fengshen_tpu_torch.device import resolve_device
 from fengshen_tpu_torch.models.llama.configuration_llama import LlamaConfig
@@ -172,29 +177,37 @@ class LlamaAttention(nn.Module):
             out = decode_attention(q, view.k, view.v, view.valid,
                                    block_table=view.block_table)
         else:
-            if cfg.attention_impl not in ("dense", "flash"):
+            impl = cfg.attention_impl
+            if impl not in ("dense", "flash") + SEQUENCE_IMPLS:
                 raise NotImplementedError(
-                    f"attention_impl={cfg.attention_impl!r} is not yet "
-                    "ported; the cacheless forward supports 'dense' and "
-                    "'flash'")
+                    f"attention_impl={impl!r} is not yet ported; the "
+                    "cacheless forward supports 'dense', 'flash', 'ring', "
+                    "'ulysses' and 'sequence'")
             if cfg.packed_sequences:
                 raise NotImplementedError(
                     "packed_sequences is not yet ported")
-            if cfg.attention_impl == "flash":
-                # a padding mask maps to segment ids (pads = segment 0),
-                # so padded SFT batches stay on kernel K1, which reads
-                # each KV head once per GQA group
-                seg = None if attention_mask is None else \
-                    attention_mask.to(torch.int32)
+            if n_kv != n_heads and impl != "flash":
+                # GQA: repeat the KV heads for the dense and
+                # sequence-parallel paths, as the reference does
+                # (:184-189); kernel K1 reads grouped heads natively
+                rep = n_heads // n_kv
+                k = k.repeat_interleave(rep, dim=2)
+                v = v.repeat_interleave(rep, dim=2)
+            # a padding mask maps to segment ids (pads = segment 0), so
+            # padded SFT batches stay on kernel K1
+            seg = None if attention_mask is None else \
+                attention_mask.to(torch.int32)
+            if impl == "flash":
                 out = flash_attention(q, k, v, causal=True, segment_ids=seg)
+            elif impl in SEQUENCE_IMPLS:
+                # one device: the sequence-parallel impls run flash
+                # attention over the whole sequence (ops/ring_attention)
+                out = dot_product_attention(q, k, v, impl=impl,
+                                            segment_ids=seg)
             else:
                 mask = causal_mask(seq, seq, device=hidden.device)[None, None]
                 if attention_mask is not None:
                     mask = mask & attention_mask[:, None, None, :].bool()
-                if n_kv != n_heads:
-                    rep = n_heads // n_kv
-                    k = k.repeat_interleave(rep, dim=2)
-                    v = v.repeat_interleave(rep, dim=2)
                 out = dot_product_attention(q, k, v, mask=mask)
         out = out.reshape(batch, seq, n_heads * head_dim)
         return _linear(self.o_proj, out, dt)
@@ -311,17 +324,40 @@ class Embed(nn.Module):
         return embed_lookup(self.weight.to(dtype), ids)
 
 
+#: the sequence-parallel attention impls (ops/attention.py)
+SEQUENCE_IMPLS = ("ring", "ulysses", "sequence")
+#: matmuls without batch dimensions: the projections' outputs, which
+#: remat policy "dots_no_batch" keeps (the attention's batched products
+#: and K1 are recomputed)
+_PROJECTION_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_projections(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective-checkpoint policy of ``dots_no_batch``
+    (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``)."""
+    del ctx, args, kwargs
+    return CheckpointPolicy.MUST_SAVE if op in _PROJECTION_OPS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: remat_policy -> checkpoint keyword arguments (``modeling_llama.py:498-503``)
+REMAT_POLICIES = {
+    "nothing": {},
+    "dots_no_batch": {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_projections)},
+}
+
+
 class LlamaModel(nn.Module):
     """Decoder stack (``modeling_llama.py:479``) as a layer loop."""
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
         if config.gradient_checkpointing and \
-                config.remat_policy != "nothing":
+                config.remat_policy not in REMAT_POLICIES:
             raise NotImplementedError(
                 f"remat_policy={config.remat_policy!r} is not yet ported; "
-                "gradient checkpointing recomputes whole layers "
-                "(remat_policy='nothing')")
+                f"the port has {sorted(REMAT_POLICIES)}")
         self.config = config
         self.embed_tokens = Embed(config.vocab_size, config.hidden_size,
                                   torch_dtype(config.param_dtype))
@@ -335,13 +371,15 @@ class LlamaModel(nn.Module):
         hidden = self.embed_tokens(input_ids, torch_dtype(self.config.dtype))
         remat = self.config.gradient_checkpointing and cache is None and \
             torch.is_grad_enabled()
+        policy = REMAT_POLICIES.get(self.config.remat_policy, {})
         for layer in self.layers:
             if remat:
-                # remat_policy "nothing": keep each layer's input only and
-                # recompute the layer in the backward (nn.remat with
-                # nothing_saveable in the reference)
+                # keep each layer's input (and, under "dots_no_batch", its
+                # projections' outputs) and recompute the rest of the
+                # layer in the backward, as nn.remat with the policy does
                 hidden = checkpoint(layer, hidden, attention_mask,
-                                    position_ids, use_reentrant=False)
+                                    position_ids, use_reentrant=False,
+                                    **policy)
             else:
                 hidden = layer(hidden, attention_mask, position_ids, cache)
         if cache is not None:
@@ -384,11 +422,15 @@ class LlamaForCausalLM(nn.Module):
                 module.weight.fill_(1.0)
 
     def forward(self, input_ids, attention_mask=None, position_ids=None,
-                cache: Optional[KVCache] = None):
+                cache: Optional[KVCache] = None, return_hidden: bool = False):
         """``cache`` given = the decode path (the reference's
         ``init_cache=True`` / existing cache); None = cacheless forward.
-        Returns ``[B, S, V]`` logits in the compute dtype."""
+        Returns ``[B, S, V]`` logits in the compute dtype, or with
+        ``return_hidden`` the final-norm hidden states ``[B, S, H]`` (for
+        the fused head + CE, which applies the head itself, :559-568)."""
         hidden = self.model(input_ids, attention_mask, position_ids, cache)
+        if return_hidden:
+            return hidden
         if self.lm_head is None:
             return hidden @ self.model.embed_tokens.weight.to(hidden.dtype).T
         return _linear(self.lm_head, hidden, hidden.dtype)

@@ -6,14 +6,16 @@ port of ``fengshen_tpu/models/model_utils.py``.
   any parameter of fewer than two dimensions.
 - :func:`get_scheduler` (:75): the same schedules, as plain functions of
   the optimizer step (the reference builds them from optax).
-- :func:`configure_optimizers` (:122): ``torch.optim.AdamW`` with a decay
-  and a no-decay parameter group from :func:`decay_mask_fn`, and a
-  ``LambdaLR`` that sets the learning rate to ``schedule(step)`` (the
-  groups' base rate is 1, so the rate is the schedule's value exactly).
-  As in optax, update ``n`` (from 0) uses ``schedule(n)``. Gradient
-  clipping (``--gradient_clip_val``) is applied by the train state before
-  the update, as the reference chains ``clip_by_global_norm`` before
-  AdamW.
+- :func:`configure_optimizers` (:122): AdamW (``torch.optim.AdamW`` for
+  fp32 parameters; :class:`AdamW`, ``optax.adamw``'s update op for op in
+  each parameter's dtype, when any parameter is in a lower precision)
+  with a decay and a no-decay parameter group from :func:`decay_mask_fn`,
+  and a ``LambdaLR`` that sets the learning rate to ``schedule(step)``
+  (the groups' base rate is 1, so the rate is the schedule's value
+  exactly). As in optax,
+  update ``n`` (from 0) uses ``schedule(n)``. Gradient clipping
+  (``--gradient_clip_val``) is applied by the train state before the
+  update, as the reference chains ``clip_by_global_norm`` before AdamW.
 - :func:`get_total_steps` (:152).
 """
 
@@ -145,11 +147,79 @@ def get_scheduler(args, total_steps: int) -> Schedule:
                  [warmup])
 
 
+class AdamW(torch.optim.Optimizer):
+    """``optax.adamw`` (``scale_by_adam``, ``add_decayed_weights``,
+    ``scale_by_learning_rate``, ``apply_updates``) as the JAX trainer runs
+    it, for parameters of any float dtype.
+
+    optax keeps both moments in the parameter's dtype and computes every
+    elementary step in it, its Python-float constants cast to that dtype
+    (``b1`` of 0.9 is 0.8984375 in bf16). So does this optimizer: for
+    bf16 parameters each product, sum, quotient and square root below is
+    rounded to bf16, in optax's order, and the result matches optax's
+    bitwise on the CPU; in fp32 it is optax's fp32 arithmetic.
+    ``torch.optim.AdamW`` decays the parameter first and folds the bias
+    corrections into one step size, which rounds otherwise in bf16.
+    ``lr`` is the schedule's value for this update; weight decay applies
+    to the groups that set it."""
+
+    def __init__(self, params, lr: float = 1.0, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @staticmethod
+    def _const(x: float, dtype: torch.dtype) -> float:
+        """``x`` as optax sees it beside an array of ``dtype``: rounded
+        to fp32, then to ``dtype``."""
+        return float(torch.tensor(x, dtype=torch.float32).to(dtype))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamW.step takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                state["step"] += 1
+                count = state["step"]
+
+                def c(x, dt=p.dtype):
+                    return self._const(x, dt)
+
+                g, mu, nu = p.grad, state["exp_avg"], state["exp_avg_sq"]
+                # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
+                mu.mul_(c(b1)).add_(g.mul(c(1 - b1)))
+                nu.mul_(c(b2)).add_((g * g).mul_(c(1 - b2)))
+                # bias corrections in fp32, then in the moments' dtype
+                bc1 = c(float(1 - torch.tensor(b1) ** count))
+                bc2 = c(float(1 - torch.tensor(b2) ** count))
+                upd = (mu / bc1).div_((nu / bc2).sqrt_().add_(c(
+                    group["eps"])))
+                if group["weight_decay"]:
+                    upd.add_(p.mul(c(group["weight_decay"])))
+                p.add_(upd.mul_(c(-float(group["lr"]))))
+        return None
+
+
 def configure_optimizers(args, total_steps: int,
                          model: torch.nn.Module
                          ) -> tuple[torch.optim.Optimizer, LambdaLR]:
     """``(AdamW, LambdaLR)`` over ``model``'s parameters; the scheduler's
-    ``schedule`` attribute is the schedule function itself."""
+    ``schedule`` attribute is the schedule function itself.
+
+    With every parameter in fp32 the optimizer is ``torch.optim.AdamW``:
+    in fp32 it agrees with optax to ~1e-8 and reads and writes each
+    parameter's state in about half the passes of :class:`AdamW`'s
+    op-by-op form. Parameters in a lower precision take :class:`AdamW`,
+    whose rounding is optax's."""
     schedule = get_scheduler(args, total_steps)
     mask = decay_mask_fn(model)
     params = dict(model.named_parameters())
@@ -159,7 +229,8 @@ def configure_optimizers(args, total_steps: int,
         {"params": [p for n, p in params.items() if not mask[n]],
          "weight_decay": 0.0},
     ]
-    optimizer = torch.optim.AdamW(
+    fp32 = all(p.dtype == torch.float32 for p in params.values())
+    optimizer = (torch.optim.AdamW if fp32 else AdamW)(
         [g for g in groups if g["params"]], lr=1.0,
         betas=(getattr(args, "adam_beta1", 0.9),
                getattr(args, "adam_beta2", 0.999)),

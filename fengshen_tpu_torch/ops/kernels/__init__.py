@@ -145,6 +145,7 @@ def log_dispatch(log: Optional[Callable[[dict], None]] = None,
 
 from fengshen_tpu_torch.ops.kernels import decode_attention  # noqa: E402,F401
 from fengshen_tpu_torch.ops.kernels import flash_attention  # noqa: E402,F401
+from fengshen_tpu_torch.ops.kernels import fused_ce  # noqa: E402,F401
 
 __all__ = ["KernelError", "KernelProbe", "KernelEntry", "probe",
            "register_kernel", "get_entry", "kernel_choice",

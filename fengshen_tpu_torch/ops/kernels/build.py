@@ -157,5 +157,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, i32, i32, i32,          # B Sq Sk H KVH D
         i32, i32, ptr]                         # causal, dtype code, stream
     lib.fstpu_flash_bwd_dq.restype = i32
+    lib.fstpu_ce_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,          # x w labels lse gold amax
+        i32, i32, i32, i32, ptr]               # T H V, dtype code, stream
+    lib.fstpu_ce_fwd.restype = i32
+    lib.fstpu_ce_bwd_dx.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,          # x w labels lse c_lse c_gold
+        ptr, ptr,                              # d (workspace) dx
+        i32, i32, i32, i32, ptr]               # T H V, dtype code, stream
+    lib.fstpu_ce_bwd_dx.restype = i32
+    lib.fstpu_ce_bwd_dk.argtypes = [
+        ptr, ptr, ptr, ptr,                    # x d sum dk
+        i32, i32, i32, i32, i32, ptr]          # first T H V, dtype, stream
+    lib.fstpu_ce_bwd_dk.restype = i32
     lib.fstpu_error_string.argtypes = [i32]
     lib.fstpu_error_string.restype = ctypes.c_char_p

@@ -124,46 +124,56 @@ def test_flash_impl_and_int8_head_not_ported(jax_logits):
     """``attention_impl="flash"`` runs (kernel K1's dispatch, which takes
     its plain version on the CPU) and gives the JAX package's flash
     logits on the left-padded batch, pad rows included (pads are segment
-    0 and attend to pads in both); impls not yet ported and the int8 LM
-    head raise."""
+    0 and attend to pads in both). ``"ring"`` on one device repeats the
+    KV heads and runs the same flash attention: the flash logits exactly,
+    and the JAX package's ring-on-one-device logits. The int8 LM head
+    raises."""
     params = jax_logits[False][0]
-    jcfg, cfg = _configs(attention_impl="flash")
     ids, mask, pos = _batch()
-    ref = JaxLlama(jcfg).apply({"params": params}, jnp.asarray(ids),
-                               attention_mask=jnp.asarray(mask),
-                               position_ids=jnp.asarray(pos))
-    model = LlamaForCausalLM(cfg, device="cpu")
-    model.load_state_dict(params_from_jax(params, cfg))
-    with torch.no_grad():
-        logits = model(*(torch.from_numpy(a).long() for a in (ids, mask)),
-                       position_ids=torch.from_numpy(pos).long())
-    np.testing.assert_allclose(logits.numpy(), np.asarray(ref), **TOL)
-    _, cfg = _configs(attention_impl="ring")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        LlamaForCausalLM(cfg, device="cpu")(torch.zeros((1, 4),
-                                                        dtype=torch.long))
+    logits = {}
+    for impl in ("flash", "ring"):
+        jcfg, cfg = _configs(attention_impl=impl)
+        ref = JaxLlama(jcfg).apply({"params": params}, jnp.asarray(ids),
+                                   attention_mask=jnp.asarray(mask),
+                                   position_ids=jnp.asarray(pos))
+        model = LlamaForCausalLM(cfg, device="cpu")
+        model.load_state_dict(params_from_jax(params, cfg))
+        with torch.no_grad():
+            logits[impl] = model(
+                *(torch.from_numpy(a).long() for a in (ids, mask)),
+                position_ids=torch.from_numpy(pos).long())
+        np.testing.assert_allclose(logits[impl].numpy(), np.asarray(ref),
+                                   **TOL)
+    torch.testing.assert_close(logits["ring"], logits["flash"], rtol=0,
+                               atol=0)
     _, cfg = _configs(int8_lm_head=True)
     with pytest.raises(NotImplementedError):
         LlamaForCausalLM(cfg, device="cpu")
 
 
 def test_gradient_checkpointing_matches_plain_backward():
-    """Per-layer recompute (remat policy "nothing") gives the gradients
-    of the plain backward exactly; other remat policies raise."""
+    """Per-layer recompute under remat policy "nothing" and under
+    "dots_no_batch" (projection outputs kept, the rest recomputed) gives
+    the gradients of the plain backward exactly; "checkpoint_dots", not
+    yet ported, raises."""
     _, cfg = _configs(attention_impl="flash")
-    _, remat_cfg = _configs(attention_impl="flash",
-                            gradient_checkpointing=True)
+    remat_cfgs = [_configs(attention_impl="flash",
+                           gradient_checkpointing=True,
+                           remat_policy=policy)[1]
+                  for policy in ("nothing", "dots_no_batch")]
     ids, mask, pos = (torch.from_numpy(a).long() for a in _batch())
     grads = []
-    for c in (cfg, remat_cfg):
+    for c in (cfg, *remat_cfgs):
         model = LlamaForCausalLM(c, device="cpu",
                                  generator=torch.Generator().manual_seed(3))
         model(ids, attention_mask=mask, position_ids=pos).square().mean() \
             .backward()
         grads.append({n: p.grad for n, p in model.named_parameters()})
-    for name, g in grads[0].items():
-        torch.testing.assert_close(grads[1][name], g, rtol=0, atol=0)
-    _, bad = _configs(gradient_checkpointing=True, remat_policy="dots_no_batch")
+    for remat_grads in grads[1:]:
+        for name, g in grads[0].items():
+            torch.testing.assert_close(remat_grads[name], g, rtol=0, atol=0)
+    _, bad = _configs(gradient_checkpointing=True,
+                      remat_policy="checkpoint_dots")
     with pytest.raises(NotImplementedError, match="remat_policy"):
         LlamaForCausalLM(bad, device="cpu")
 

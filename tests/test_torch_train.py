@@ -262,6 +262,10 @@ def test_schedule_matches_jax(stype):
 
 
 def test_trainer_refuses_unported_flags_and_installs_no_handler(tmp_path):
+    """Unported flags raise and the Trainer leaves SIGTERM alone.
+    ``fused_ce_chunks`` trains on the CPU (the fused head + CE gives the
+    logits path's loss and gradients); over a tensor degree above 1 it
+    raises."""
     handler = signal.getsignal(signal.SIGTERM)
     for flag, value in (("--tensor_model_parallel_size", 2),
                         ("--offload", "opt"), ("--steps_per_execution", 2),
@@ -273,12 +277,31 @@ def test_trainer_refuses_unported_flags_and_installs_no_handler(tmp_path):
             Trainer(args)
     Trainer(port_sft.parse_args(_argv(tmp_path, **{"--device": "cpu"})))
     assert signal.getsignal(signal.SIGTERM) is handler
-    with pytest.raises(NotImplementedError, match="K2"):
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        3, 250, (2, 12))).long()
+    args = port_sft.parse_args(_argv(tmp_path))
+    results = []
+    for chunks in (0, 2):
         cfg = LlamaConfig.small_test_config(**{**CONFIG,
-                                               "fused_ce_chunks": 2})
-        args = port_sft.parse_args(_argv(tmp_path))
+                                               "fused_ce_chunks": chunks})
         module = port_sft.Llama(args, cfg, device="cpu")
-        module.training_loss({"input_ids": torch.zeros(1, 4).long()})
+        module.init_params(torch.Generator().manual_seed(0))
+        loss, metrics = module.training_loss({"input_ids": ids})
+        loss.backward()
+        results.append((loss.detach(), metrics, {
+            n: p.grad for n, p in module.model.named_parameters()}))
+    (loss0, m0, g0), (loss2, m2, g2) = results
+    assert torch.isfinite(loss2)
+    torch.testing.assert_close(loss2, loss0, rtol=1e-6, atol=0)
+    assert int(m2["n_tokens"]) == int(m0["n_tokens"]) == 22
+    torch.testing.assert_close(m2["acc"].float(), m0["acc"].float())
+    for name, g in g0.items():
+        torch.testing.assert_close(g2[name], g, rtol=1e-5, atol=1e-7)
+    with pytest.raises(NotImplementedError, match="tensor"):
+        args = port_sft.parse_args(_argv(tmp_path, **{
+            "--tensor_model_parallel_size": 2}))
+        module = port_sft.Llama(args, cfg, device="cpu")
+        module.training_loss({"input_ids": ids})
 
 
 def test_guard_skips_a_non_finite_step(jax_run, tmp_path):
