@@ -11,19 +11,29 @@ Phases (each raises on failure, so any failure exits non-zero):
    the main paths give it, with its time, the plain version's, one
    PyTorch library call's (``library_ms``, a yardstick the port never
    calls) and the bound (the least time the card could take): K3 (paged
-   decode attention), then K1 (flash attention: forward, dK/dV, dQ);
+   decode attention) over bf16 pools and over int8 pools with fp32
+   scales (a planted scale fault must be rejected), then K1 (flash
+   attention: forward, dK/dV, dQ);
 4. serving path: Ziya-LLaMA-13B at full width and depth (bf16 weights
    made on the card from a seed) served through the stdlib HTTP server
    and the continuous-batching engine, first over a paged KV pool, then
    over a slot pool; every kernel's launch count is set to 0 just before
    each run and read just after;
 5. teacher-forced check: every served sequence re-scored by one
-   cacheless forward of the same model;
-6. profile: a few decode ticks under ``torch.profiler`` (device busy
-   and idle share per tick, the kernels that take the time);
+   cacheless forward of the same model; then the same model served from
+   int8 KV pools (paged, then slot; K3's int8 branch), its tokens held
+   to the bf16 pools' by the reference's margin-aware bar (at the first
+   disagreement the bf16 top-2 gap must be within 4x the measured int8
+   round-trip noise), counts set to 0 just before each run and read
+   just after;
+6. profile: a few decode ticks under ``torch.profiler``, over a bf16
+   and over an int8 paged pool (device busy and idle share per tick,
+   the kernels that take the time);
 7. fp32 serving bar: a 4-layer model at Ziya width in fp32 (fp32 KV
    pools through K3), its greedy tokens held to the cacheless dense
-   forward within a margin derived from fp32 rounding;
+   forward within a margin derived from fp32 rounding; then served once
+   more from an int8 pool, held to the fp32 pool's tokens by the
+   margin-aware bar;
 8. training path: ``finetune_ziya_llama.main`` at Ziya width with 4
    layers (fp32 master weights, bf16 compute, flash attention through K1,
    gradient checkpointing, AdamW) for 6 steps over one repeated batch
@@ -40,7 +50,12 @@ Phases (each raises on failure, so any failure exits non-zero):
 
 Phase 3 also holds K2 (fused LM-head cross-entropy: forward, dx, dK) to
 its plain version at the long-context path's shape (T = 32767 tokens,
-H = 4096, V = 32000, bf16), with planted faults.
+H = 4096, V = 32000, bf16), with planted faults, and drives the
+block-sparse path: ``dot_product_attention(impl="sparse")`` forward and
+backward by autograd at Ziya's attention width (S = 8192, 40 heads,
+head_dim 128, bf16, a BigBird layout of 128-token blocks) through K4
+(forward, dK/dV, dQ), counts set to 0 just before and read just after,
+then each K4 kernel against its plain version, with planted faults.
 
 It prints one line per phase, then a ``{"kernels": [...]}`` JSON line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a card,
@@ -164,6 +179,26 @@ CE_TILE = 128
 NEW_TOKENS = 32
 PROMPT_LENGTHS = (5, 40, 64, 65, 100, 130, 200, 300)   # buckets 64..512
 
+#: int8 KV (phases 3, 5, 7): the reference's margin-aware bar. At the
+#: first position where an int8 pool's greedy token differs from the
+#: unquantized pool's, the unquantized model's teacher-forced top-2 gap
+#: must be within INT8_NOISE_SCALE x the measured round-trip noise (the
+#: max |logit| change when the cache's K/V go through int8 and back)
+INT8_NOISE_SCALE = 4.0
+#: the KV head whose scales the planted int8 fault halves
+INT8_FAULT_HEAD = 3
+
+K4_NAMES = ("block_sparse_attention_fwd", "block_sparse_attention_bwd_dkv",
+            "block_sparse_attention_bwd_dq")
+#: K4 at Ziya's attention width: batch 1, 8192 tokens, 40 heads of 128,
+#: bf16, 128-token blocks; the layout is BigBird with DeepSpeed's
+#: BigBirdSparsityConfig defaults (1 random, 1 global and 3 window
+#: blocks), seed 0: 374 of 4096 blocks present
+BS_SEQ, BS_HEADS, BS_DIM, BS_BLOCK = 8192, 40, 128, 128
+BS_RANDOM, BS_GLOBAL, BS_WINDOW = 1, 1, 3
+#: the present block the planted K4 faults drop: (query block, key block)
+BS_FAULT_BLOCK = (32, 32)
+
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] {json.dumps(fields, default=str)}", flush=True)
@@ -249,17 +284,18 @@ def decode_case(layout: str, s: int, gen):
     return q, k, v, valid, table
 
 
-def decode_bound(q, k, valid, table):
+def decode_bound(q, k, valid, table, scale_bytes=0):
     """Least time for one call: the bytes it must move over HBM rate,
     against fp32 flops over the CUDA-core rate; the larger bounds it.
     Counted: q read and out written once, the valid mask and table read
     once, and per lane the K and V rows of every position some query row
     may attend to (a parked lane's output is the mean of ALL its values,
-    so its V rows, not its K rows, count)."""
+    so its V rows, not its K rows, count), each row with its scales
+    (``scale_bytes`` per head: 4 for an int8 pool's fp32 scale)."""
     B, S, H, D = q.shape
     KVH = k.shape[2]
     L = valid.shape[2]
-    row_bytes = KVH * D * k.element_size()
+    row_bytes = KVH * (D * k.element_size() + scale_bytes)
     attended = valid.any(1).sum(1).tolist()               # per lane
     kv = sum(2 * n * row_bytes if n else L * row_bytes for n in attended)
     moved = (2 * q.numel() * q.element_size() + valid.numel() + kv +
@@ -319,6 +355,98 @@ def phase_kernels():
                 fraction_of_bound=bound_ms / ms)
             del q, k, v, valid, table, out, ref, kg, vg, qt, kt, vt
     torch.cuda.empty_cache()
+    return rows
+
+
+def int8_pool(shape, gen):
+    """An int8 pool and its fp32 per-(token, head) scales, drawn as
+    ``tests/test_pallas_kernels.py`` draws them: values uniform in
+    [-127, 127], scales uniform in [0.001, 0.021)."""
+    import torch
+    values = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                           dtype=torch.int16).to(torch.int8)
+    scales = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02 \
+        + 0.001
+    return values, scales
+
+
+def phase_int8_kernels():
+    """K3's int8 branch at decode_case's shapes (8 lanes of 2048, 40
+    heads, head_dim 128, bf16 queries, slot and paged, S 1 and 5) over
+    int8 pools with random fp32 scales, dequantized through bf16 (the
+    serving path's compute dtype). Held to the plain version run in fp32
+    on the same K/V, dequantized and rounded to bf16 as the kernel does
+    (element limit of k1_reading, relative L2 under K1_L2_TOL); a
+    planted fault, one KV head's scales halved in the kernel's input
+    only, must be rejected. Times: the kernel, the registered plain
+    version on the same inputs, and SDPA over the dequantized, gathered
+    lanes (the dequantization not timed)."""
+    import torch
+    import torch.nn.functional as F
+    from fengshen_tpu_torch.ops.int8_matmul import dequantize_kv
+    from fengshen_tpu_torch.ops.kernels.decode_attention import (
+        cuda_decode_attention, torch_decode_attention)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows, failures = {}, []
+    for layout in ("slot", "paged"):
+        for s in (1, 5):
+            q, kb, _, valid, table = decode_case(layout, s, gen)
+            k, ks = int8_pool(kb.shape, gen)
+            v, vs = int8_pool(kb.shape, gen)
+            del kb
+            kw = dict(k_scale=ks, v_scale=vs, block_table=table,
+                      dequant_dtype=torch.bfloat16)
+            out = cuda_decode_attention(q, k, v, valid, **kw)
+            torch.cuda.synchronize()
+            kd = dequantize_kv(k, ks, torch.bfloat16)
+            vd = dequantize_kv(v, vs, torch.bfloat16)
+            ref = torch_decode_attention(q.float(), kd.float(), vd.float(),
+                                         valid, block_table=table)
+            reading = k1_reading(out, ref)
+            reading["rel_l2"] = ((out.float() - ref).norm() /
+                                 ref.norm()).item()
+            if not torch.isfinite(out.float()).all() or \
+                    reading["worst"] > 1.0 or reading["rel_l2"] > K1_L2_TOL:
+                failures.append(f"K3 int8 {layout} S={s}: {reading}")
+            bad = dict(kw, k_scale=ks.clone(), v_scale=vs.clone())
+            bad["k_scale"][..., INT8_FAULT_HEAD] *= 0.5
+            bad["v_scale"][..., INT8_FAULT_HEAD] *= 0.5
+            planted = k1_reading(cuda_decode_attention(q, k, v, valid, **bad),
+                                 ref)
+            torch.cuda.synchronize()
+            if planted["worst"] <= 1.0:
+                failures.append(f"K3 int8 {layout} S={s}: the planted "
+                                f"scale fault passed: {planted}")
+            ms = cuda_ms(lambda: cuda_decode_attention(q, k, v, valid, **kw),
+                         50)
+            plain_ms = cuda_ms(lambda: torch_decode_attention(
+                q, k, v, valid, **kw), 5)
+            if table is None:
+                kg, vg = kd, vd
+            else:
+                idx = (table.long()[:, :, None] * k.shape[1] +
+                       torch.arange(k.shape[1], device="cuda")).flatten(1)
+                kg, vg = kd.flatten(0, 1)[idx], vd.flatten(0, 1)[idx]
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, kg, vg))
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=valid[:, None]), 20)
+            bound_ms, bound_by, moved = decode_bound(q, k, valid, table,
+                                                     scale_bytes=4)
+            rows[(layout, s)] = dict(
+                max_abs_err=reading["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            say("kernel", name="decode_attention_int8", layout=layout, S=s,
+                shape=list(q.shape), pool=list(k.shape), pool_dtype="int8",
+                dequant_dtype="bfloat16", rtol=K1_RTOL, l2_tol=K1_L2_TOL,
+                **reading, planted_scale_fault=planted, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes_moved=moved,
+                fraction_of_bound=bound_ms / ms)
+            del q, k, v, ks, vs, kd, vd, valid, table, out, ref, kg, vg
+            del qt, kt, vt, kw, bad
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
     return rows
 
 
@@ -576,16 +704,19 @@ def post(port: int, text: str) -> tuple:
         return r.status, json.loads(r.read()), time.perf_counter() - t0
 
 
-def serve_run(pipe, layout: str, prompts, entry):
+def serve_run(pipe, layout: str, prompts, entry, kv_dtype: str = "fp32"):
     """One engine + server on port 0; 8 concurrent POSTs. Returns the
-    served token ids per prompt and the launch count of the run."""
+    served token ids per prompt and the launch count of the run.
+    ``kv_dtype`` "fp32" keeps the pool in the model's compute dtype;
+    "int8" quantizes it."""
     import torch
     from fengshen_tpu_torch.api.main import (PipelineConfig, ServerConfig,
                                              build_stdlib_server,
                                              start_continuous_engine)
     from fengshen_tpu_torch.ops.kernels import reset_launch_counts
     engine = start_continuous_engine(
-        pipe, {"num_slots": 8, "kv_layout": layout, "max_queue": 16})
+        pipe, {"num_slots": 8, "kv_layout": layout, "max_queue": 16,
+               "kv_dtype": kv_dtype})
     server = build_stdlib_server(
         ServerConfig(host="127.0.0.1", port=0),
         PipelineConfig(task="text_generation"), pipeline=pipe,
@@ -626,7 +757,7 @@ def serve_run(pipe, layout: str, prompts, entry):
         raise AssertionError(f"{layout}: {dense_calls} dense-route calls "
                              f"for {prefills} prefills")
     tokens = NEW_TOKENS * len(prompts)
-    say("serve", layout=layout, requests=len(prompts),
+    say("serve", layout=layout, kv_dtype=kv_dtype, requests=len(prompts),
         prompt_tokens=[len(p) for p in prompts],
         buckets=sorted(after["prefills_per_bucket"]),
         generated_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
@@ -738,11 +869,103 @@ def phase_teacher_forced(model, prompts, runs, margin=TF_MARGIN,
     return worst
 
 
+def kv_roundtrip_noise(model, seq) -> float:
+    """The int8-KV logit perturbation, measured as the reference's
+    ``_kv_roundtrip_noise`` (tests/test_serving_paged.py:194) does:
+    prime a cache on ``seq[:-1]``, round its K/V through the pool's
+    per-(token, head) quantization, decode one step both ways, and take
+    the max |logit| difference."""
+    import torch
+    from fengshen_tpu_torch.models.llama.modeling_llama import KVCache
+    from fengshen_tpu_torch.ops.int8_matmul import dequantize_kv, quantize_kv
+    from fengshen_tpu_torch.utils.generate import _prefill_cache
+    dev = model.device
+    ids = torch.tensor(list(seq[:-1]), device=dev)[None]
+    mask = torch.ones_like(ids)
+    _, cache = _prefill_cache(model, ids, mask,
+                              torch.arange(ids.shape[1], device=dev)[None])
+
+    def step(roundtrip):
+        def kv(t):
+            return dequantize_kv(*quantize_kv(t), t.dtype) if roundtrip \
+                else t.clone()
+        c = KVCache([kv(t) for t in cache.keys],
+                    [kv(t) for t in cache.values], cache.index)
+        return model(torch.tensor([[int(seq[-1])]], device=dev),
+                     attention_mask=mask,
+                     position_ids=torch.tensor([[len(seq) - 1]], device=dev),
+                     cache=c)[0, -1].float()
+    with torch.no_grad():
+        return float((step(False) - step(True)).abs().max())
+
+
+def first_disagreement(model, prompt, ref_tokens, test_tokens):
+    """The reference's margin-aware bar (tests/test_serving_paged.py:
+    225-250) for one sequence: None where the int8 stream equals the
+    unquantized one; else the first disagreeing position, the
+    unquantized model's teacher-forced top-2 gap there (one cacheless
+    forward of the unpadded sequence), the measured round-trip noise on
+    that prefix, and whether the gap is within INT8_NOISE_SCALE x the
+    noise. Positions after the first are autoregressive drift and are
+    not judged."""
+    import torch
+    for t, (a, b) in enumerate(zip(ref_tokens, test_tokens)):
+        if a == b:
+            continue
+        seq = list(prompt) + list(ref_tokens[:t + 1])
+        with torch.no_grad():
+            logits = model(torch.tensor(seq, device=model.device)[None])[0]
+        top2 = logits[len(prompt) + t - 1].float().topk(2).values
+        margin = float(top2[0] - top2[1])
+        noise = kv_roundtrip_noise(model, seq[:len(prompt) + t])
+        return {"position": t, "margin": margin, "noise": noise,
+                "ok": margin <= INT8_NOISE_SCALE * noise}
+    return None
+
+
+def int8_bar(model, prompts, ref_runs, int8_runs, phase):
+    """Hold every int8-served sequence to the unquantized one served for
+    the same prompt and layout with :func:`first_disagreement`."""
+    verdicts = {}
+    for layout, served in int8_runs.items():
+        verdicts[layout] = [
+            first_disagreement(model, p, ref, got)
+            for p, ref, got in zip(prompts, ref_runs[layout], served)]
+    identical = {layout: sum(v is None for v in vs)
+                 for layout, vs in verdicts.items()}
+    say(phase, noise_scale=INT8_NOISE_SCALE,
+        identical_sequences=identical, sequences=len(prompts),
+        first_disagreements={layout: [v for v in vs if v is not None]
+                             for layout, vs in verdicts.items()})
+    bad = [v for vs in verdicts.values() for v in vs
+           if v is not None and not v["ok"]]
+    if bad:
+        raise AssertionError(f"{phase}: int8 KV flipped a confident "
+                             f"position: {bad}")
+
+
+def phase_int8_serving(model, pipe, prompts, runs):
+    """The 40-layer bf16 model served again from int8 KV pools (paged,
+    then slot) through the HTTP server and engine: K3's int8 branch on
+    every layer of every tick (serve_run pins 40 launches per tick and
+    prints tokens/s, TTFT, peak memory and the pool's bytes), its tokens
+    held to the bf16 pools' tokens by the margin-aware bar."""
+    from fengshen_tpu_torch.ops.kernels import get_entry
+    entry = get_entry("decode_attention")
+    int8_runs, launches = {}, 0
+    for layout in ("paged", "slot"):
+        int8_runs[layout], n = serve_run(pipe, layout, prompts, entry,
+                                         kv_dtype="int8")
+        launches += n
+    int8_bar(model, prompts, runs, int8_runs, "int8_bar")
+    return launches
+
+
 # -- phase 6 ------------------------------------------------------------
 
-def phase_profile(pipe, prompts, ticks: int = 8):
-    """Where a decode tick's time goes: a paged engine with all 8 lanes
-    decoding, ``ticks`` ticks under ``torch.profiler``. Reports wall time
+def phase_profile(pipe, prompts, ticks: int = 8, kv_dtype: str = "fp32"):
+    """Where a decode tick's time goes: a paged engine (``kv_dtype`` pool)
+    with all 8 lanes decoding, ``ticks`` ticks under ``torch.profiler``. Reports wall time
     per tick, device-busy time per tick (sum of kernel self times; one
     stream, so kernels do not overlap), the device's idle share, and the
     kernels that take most device time. Run after the timed phases, so
@@ -752,7 +975,7 @@ def phase_profile(pipe, prompts, ticks: int = 8):
     from torch.profiler import ProfilerActivity, profile
     from fengshen_tpu_torch.api.main import create_continuous_engine
     engine = create_continuous_engine(
-        pipe, {"num_slots": 8, "kv_layout": "paged"})
+        pipe, {"num_slots": 8, "kv_layout": "paged", "kv_dtype": kv_dtype})
     engine.warmup()
     for p in prompts:
         engine.submit(p, max_new_tokens=NEW_TOKENS)
@@ -772,7 +995,7 @@ def phase_profile(pipe, prompts, ticks: int = 8):
                 ev.time_range.elapsed_us()
     busy_ms = sum(kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    say("profile", layout="paged", lanes=8, ticks=ticks,
+    say("profile", layout="paged", kv_dtype=kv_dtype, lanes=8, ticks=ticks,
         wall_ms_per_tick=wall * 1e3 / ticks,
         device_busy_ms_per_tick=(busy_ms / ticks if kernels else
                                  "not measured: no device events"),
@@ -810,12 +1033,17 @@ def phase_fp32_serving(prompts):
         generator=torch.Generator(device="cuda").manual_seed(1))
     pipe = Pipeline(module=model, tokenizer=IdTokenizer(),
                     max_new_tokens=NEW_TOKENS, device="cuda")
-    served, launches = serve_run(pipe, "paged", prompts,
-                                 get_entry("decode_attention"))
+    entry = get_entry("decode_attention")
+    served, launches = serve_run(pipe, "paged", prompts, entry)
     phase_teacher_forced(model, prompts, {"paged": served},
                          margin=FP32_MARGIN, phase="fp32_bar")
     # this bar's own K3 launches; the kernels line counts the main path's
     say("fp32_bar", layers=FP32_LAYERS, decode_attention_launches=launches)
+    # the same model from an int8 pool: K3's int8 branch dequantizing
+    # through fp32, held to the fp32 pool's tokens
+    served8, _ = serve_run(pipe, "paged", prompts, entry, kv_dtype="int8")
+    int8_bar(model, prompts, {"paged": served}, {"paged": served8},
+             "fp32_int8_bar")
     del model, pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -1276,6 +1504,247 @@ def phase_ce_kernels():
     return rows_out
 
 
+# -- phase 3, K4 ------------------------------------------------------------
+
+def bs_bounds(layout, batch, heads, seq, dim, block, elt):
+    """Least time of each K4 kernel on these inputs (Sq = Sk = seq): bytes
+    (each input read once, each output written once) over the HBM rate,
+    against the flops of the present blocks over the bf16 tensor-core
+    rate; the larger bounds it. One product over the present blocks is
+    2 block^2 dim flops per block and head: fwd 2 (Q K^T, P V), dK/dV 4
+    (Q K^T, dO V^T, P^T dO, dS^T Q), dQ 3 (Q K^T, dO V^T, dS K)."""
+    product = 2.0 * block * block * dim * int(layout.sum()) * batch * heads
+    io = batch * seq * heads * dim * elt
+    rows = batch * heads * seq * 4
+    work = {"fwd": (4 * io + rows, 2 * product),
+            "dkv": (6 * io + 2 * rows, 4 * product),
+            "dq": (5 * io + 2 * rows, 3 * product)}
+    out = {}
+    for name, (moved, flops) in work.items():
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def bs_check(name, got, want, failures, report):
+    """k1_reading of a K4 result against its fp32 plain version, and its
+    relative L2; failures collect what breaks either bar."""
+    import torch
+    reading = k1_reading(got, want)
+    reading["rel_l2"] = ((got.float() - want).norm() /
+                         want.norm().clamp(min=1e-30)).item()
+    report[name] = reading
+    if not torch.isfinite(got.float()).all() or reading["worst"] > 1.0 or \
+            reading["rel_l2"] > K1_L2_TOL:
+        failures.append(f"K4 {name}: {reading}")
+
+
+def bs_kernels(q, k, v, g, layout, block):
+    """The three K4 kernels on one input: out, lse, delta, dq, dk, dv."""
+    from fengshen_tpu_torch.ops.kernels import block_sparse_attention as k4
+    out, lse = k4.cuda_bs_fwd(q, k, v, layout, block)
+    delta = k4.attention_delta(out, g)
+    dk, dv = k4.cuda_bs_bwd_dkv(q, k, v, g, lse, delta, layout, block)
+    dq = k4.cuda_bs_bwd_dq(q, k, v, g, lse, delta, layout, block)
+    return out, lse, delta, dq, dk, dv
+
+
+def bs_case(seq, heads, gen):
+    """q, k, v and a cotangent [1, seq, heads, BS_DIM], bf16."""
+    import torch
+    def rnd():
+        return torch.randn(1, seq, heads, BS_DIM, generator=gen,
+                           device="cuda").bfloat16()
+    return rnd(), rnd(), rnd(), rnd()
+
+
+def phase_block_sparse():
+    """The block-sparse path and K4. At Ziya's attention width (B = 1,
+    S = BS_SEQ, 40 heads of 128, bf16, 128-token blocks, the BigBird
+    layout): ``dot_product_attention(impl="sparse")`` forward and its
+    backward by autograd, counts set to 0 just before and read just
+    after (one launch of each kernel, no dense call). Then each kernel on
+    the same inputs (they must give the path's results exactly) against
+    its plain version run in fp32 on the same bf16 inputs (the backward
+    kernels' on the forward kernel's lse and delta): out, dq, dk and dv
+    within k1_reading's element limit and K1_L2_TOL relative L2, lse
+    within K1_LSE_ATOL. A small layout with an empty query block and an
+    unread key block is checked the same way. Planted faults must be
+    rejected: one present block dropped from the forward's block list,
+    and one query block's contribution dropped from dK/dV. Times of the
+    kernels, the plain versions on the kernels' bf16 inputs, and SDPA
+    with the layout expanded into a boolean mask (forward, and its
+    backward by autograd)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from fengshen_tpu_torch.ops import masks
+    from fengshen_tpu_torch.ops.attention import dot_product_attention
+    from fengshen_tpu_torch.ops.kernels import (get_entry,
+                                                reset_launch_counts)
+    from fengshen_tpu_torch.ops.kernels import block_sparse_attention as k4
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    failures, report = [], {}
+    layout = masks.bigbird_block_layout(BS_SEQ, BS_BLOCK, BS_RANDOM,
+                                        BS_GLOBAL, BS_WINDOW, seed=0)
+    q, k, v, g = bs_case(BS_SEQ, BS_HEADS, gen)
+
+    # the path
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = dot_product_attention(qg, kg, vg, impl="sparse",
+                                sparse_layout=layout,
+                                sparse_block_size=BS_BLOCK)
+    out.backward(g)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {n: get_entry(n).launches for n in K4_NAMES}
+    dense_calls = get_entry(K4_NAMES[0]).dense_calls
+    if launches != {n: 1 for n in K4_NAMES} or dense_calls != 0:
+        failures.append(f"K4 path: launches {launches}, dense calls "
+                        f"{dense_calls}; want 1 each and 0")
+
+    # the kernels against their plain versions
+    k_out, lse, delta, dq, dk, dv = bs_kernels(q, k, v, g, layout, BS_BLOCK)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in (
+        (out, k_out), (qg.grad, dq), (kg.grad, dk), (vg.grad, dv)))
+    if not same:
+        failures.append("K4 path: the autograd path's results differ from "
+                        "the kernels' on the same inputs")
+    del qg, kg, vg, out
+    f32 = [t.float() for t in (q, k, v, g)]
+    ref_out, ref_lse = k4.torch_bs_fwd(*f32[:3], layout, BS_BLOCK)
+    ref_dq, ref_dk, ref_dv = k4.torch_bs_bwd(*f32, lse, delta, layout,
+                                             BS_BLOCK)
+    for name, got, want in (("out", k_out, ref_out), ("dq", dq, ref_dq),
+                            ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        bs_check(name, got, want, failures, report)
+    lse_err = (lse - ref_lse).abs().max().item()
+    report["lse"] = {"max_abs_err": lse_err}
+    if lse_err > K1_LSE_ATOL:
+        failures.append(f"K4 lse: max abs err {lse_err}")
+
+    # planted faults
+    qb, kb = BS_FAULT_BLOCK
+    dropped = layout.copy()
+    if not dropped[qb, kb] or dropped[qb].sum() < 2:
+        raise AssertionError(f"K4: block {BS_FAULT_BLOCK} is not a present "
+                             "block of a row with others")
+    dropped[qb, kb] = False
+    planted = {"fwd_block_dropped": k1_reading(
+        k4.cuda_bs_fwd(q, k, v, dropped, BS_BLOCK)[0], ref_out)}
+    mut_dk, mut_dv = k4.cuda_bs_bwd_dkv(q, k, v, g, lse, delta, dropped,
+                                        BS_BLOCK)
+    planted["dkv_query_block_dropped_dk"] = k1_reading(mut_dk, ref_dk)
+    planted["dkv_query_block_dropped_dv"] = k1_reading(mut_dv, ref_dv)
+    torch.cuda.synchronize()
+    del mut_dk, mut_dv
+    for key, reading in planted.items():
+        if reading["worst"] <= 1.0:
+            failures.append(f"K4 planted {key}: the check gave {reading}")
+    report["planted"] = planted
+
+    # times
+    kernels = {
+        "block_sparse_attention_fwd": lambda: k4.cuda_bs_fwd(
+            q, k, v, layout, BS_BLOCK),
+        "block_sparse_attention_bwd_dkv": lambda: k4.cuda_bs_bwd_dkv(
+            q, k, v, g, lse, delta, layout, BS_BLOCK),
+        "block_sparse_attention_bwd_dq": lambda: k4.cuda_bs_bwd_dq(
+            q, k, v, g, lse, delta, layout, BS_BLOCK)}
+    plains = {
+        "block_sparse_attention_fwd": lambda: k4.torch_bs_fwd(
+            q, k, v, layout, BS_BLOCK),
+        "block_sparse_attention_bwd_dkv": lambda: k4.torch_bs_bwd(
+            q, k, v, g, lse, delta, layout, BS_BLOCK),
+        "block_sparse_attention_bwd_dq": lambda: k4.torch_bs_bwd(
+            q, k, v, g, lse, delta, layout, BS_BLOCK)}
+    ms = {n: cuda_ms(fn, 5) for n, fn in kernels.items()}
+    plain_ms = {n: cuda_ms(fn, 2) for n, fn in plains.items()}
+    mask = torch.from_numpy(np.kron(layout, np.ones(
+        (BS_BLOCK, BS_BLOCK), dtype=bool))).cuda()[None, None]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), 3)
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    gt = g.transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), gt, retain_graph=True), 3)
+    del o, qt, kt, vt, gt, mask
+    bounds = bs_bounds(layout, 1, BS_HEADS, BS_SEQ, BS_DIM, BS_BLOCK,
+                       q.element_size())
+    rows = {}
+    for name, key, lib, errs in (
+            ("block_sparse_attention_fwd", "fwd", lib_fwd,
+             (report["out"]["max_abs_err"], lse_err)),
+            ("block_sparse_attention_bwd_dkv", "dkv", lib_bwd,
+             (report["dk"]["max_abs_err"], report["dv"]["max_abs_err"])),
+            ("block_sparse_attention_bwd_dq", "dq", lib_bwd,
+             (report["dq"]["max_abs_err"],))):
+        rows[name] = dict(ms=ms[name], plain_ms=plain_ms[name],
+                          library_ms=lib, bound_ms=bounds[key][0],
+                          bound_by=bounds[key][1], max_abs_err=max(errs),
+                          launches=launches[name])
+    say("kernel", name="block_sparse_attention", batch=1, seq=BS_SEQ,
+        heads=BS_HEADS, head_dim=BS_DIM, block=BS_BLOCK, dtype="bfloat16",
+        layout=f"bigbird random={BS_RANDOM} global={BS_GLOBAL} "
+        f"window={BS_WINDOW} seed=0", blocks_present=int(layout.sum()),
+        blocks_total=int(layout.size), path_launches=launches,
+        path_dense_calls=dense_calls, path_s=path_s,
+        path_equals_kernels=same, rtol=K1_RTOL, l2_tol=K1_L2_TOL, **report,
+        times_ms=ms, plain_ms=plain_ms, library_fwd_ms=lib_fwd,
+        library_bwd_ms=lib_bwd,
+        bound_ms={n: b[0] for n, b in bounds.items()},
+        bound_by={n: b[1] for n, b in bounds.items()},
+        fraction_of_bound={n: r["bound_ms"] / r["ms"]
+                           for n, r in rows.items()})
+    del q, k, v, g, f32, k_out, lse, delta, dq, dk, dv
+    del ref_out, ref_lse, ref_dq, ref_dk, ref_dv
+    torch.cuda.empty_cache()
+
+    # a small layout: a query block with no key block, a key block no
+    # query block reads, a first row that starts late
+    small = np.random.RandomState(8).rand(8, 8) < 0.4
+    small[0] = False
+    small[0, 6] = True
+    small[3] = False
+    small[:, 5] = False
+    q, k, v, g = bs_case(8 * BS_BLOCK, 4, gen)
+    s_out, s_lse, s_delta, s_dq, s_dk, s_dv = bs_kernels(q, k, v, g, small,
+                                                         BS_BLOCK)
+    f32 = [t.float() for t in (q, k, v, g)]
+    ref_out, ref_lse = k4.torch_bs_fwd(*f32[:3], small, BS_BLOCK)
+    refs = (ref_out,) + k4.torch_bs_bwd(*f32, s_lse, s_delta, small,
+                                        BS_BLOCK)
+    small_report = {}
+    for name, got, want in zip(("out", "dq", "dk", "dv"),
+                               (s_out, s_dq, s_dk, s_dv), refs):
+        bs_check(name, got, want, failures, small_report)
+    rows3 = slice(3 * BS_BLOCK, 4 * BS_BLOCK)
+    col5 = slice(5 * BS_BLOCK, 6 * BS_BLOCK)
+    zeros = bool((s_out[:, rows3] == 0).all() and (s_dq[:, rows3] == 0).all()
+                 and (s_dk[:, col5] == 0).all() and
+                 (s_dv[:, col5] == 0).all() and
+                 (s_lse[..., rows3] <= -1e29).all())
+    if not zeros:
+        failures.append("K4 small layout: the empty query block or the "
+                        "unread key block is not zero")
+    say("kernel", name="block_sparse_attention", case="small_empty_row",
+        seq=8 * BS_BLOCK, heads=4, layout=small.astype(int).tolist(),
+        empty_rows_zero=zeros, **small_report)
+    del q, k, v, g, f32, s_out, s_lse, s_delta, s_dq, s_dk, s_dv, refs
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rows
+
+
 # -- phase 9 ------------------------------------------------------------
 
 def grad_rel_named(got: dict, want: dict) -> dict:
@@ -1493,11 +1962,15 @@ def main() -> int:
     card = phase_device()
     build_s = phase_build()
     rows = phase_kernels()
+    int8_rows = phase_int8_kernels()
     k1_rows = phase_flash_kernels()
     k2_rows = phase_ce_kernels()
+    k4_rows = phase_block_sparse()
     model, pipe, prompts, runs, launches = phase_main_path()
     phase_teacher_forced(model, prompts, runs)
+    int8_launches = phase_int8_serving(model, pipe, prompts, runs)
     phase_profile(pipe, prompts)
+    phase_profile(pipe, prompts, kv_dtype="int8")
     del model, pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -1508,13 +1981,21 @@ def main() -> int:
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     main_row = rows[("paged", 1)]
+    int8_row = int8_rows[("paged", 1)]
     kernels = [{
         "name": entry.name, "route": "cuda", "source": entry.source,
         "replaces": entry.replaces, "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]
+        "library_ms": main_row["library_ms"]}, {
+        "name": f"{entry.name}_int8", "route": "cuda",
+        "source": entry.source, "replaces": entry.replaces,
+        "launches": int8_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in int8_rows.values()),
+        "ms": int8_row["ms"], "plain_ms": int8_row["plain_ms"],
+        "bound_ms": int8_row["bound_ms"], "bound_by": int8_row["bound_by"],
+        "library_ms": int8_row["library_ms"]}]
     for name in K1_NAMES:
         e, r = get_entry(name), k1_rows[name]
         kernels.append({
@@ -1528,6 +2009,14 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": e.source,
             "replaces": e.replaces, "launches": long_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name in K4_NAMES:
+        e, r = get_entry(name), k4_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": e.source,
+            "replaces": e.replaces, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

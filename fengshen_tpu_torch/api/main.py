@@ -110,7 +110,8 @@ def start_continuous_engine(pipeline, engine_args: dict, log=None):
     print(f"[serving] continuous engine warmup "
           f"(buckets={list(engine.ladder.buckets)}, "
           f"num_slots={engine.config.num_slots}, "
-          f"kv_layout={engine.config.kv_layout}, device={engine.device}) "
+          f"kv_layout={engine.config.kv_layout}, "
+          f"kv_dtype={engine.config.kv_dtype}, device={engine.device}) "
           f"in {dt:.1f}s", flush=True)
     engine.start()
     return engine

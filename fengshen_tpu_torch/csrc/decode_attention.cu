@@ -12,10 +12,19 @@
 // lane's values (what the plain version's -1e9 bias gives), never NaN.
 // GQA maps query head h to KV head h / (H / KVH).
 //
+// The int8 branch (the TPU kernel's `quantized` path, :176-181): the
+// pool holds int8 K/V with one fp32 absmax scale per (token, KV head)
+// ([B, L, KVH] or [num_blocks, block_size, KVH]). Each element is
+// dequantized as it is staged, int8 -> fp32 x scale -> rounded to the
+// compute dtype (fp32 or bf16) -> fp32, which is dequantize_kv's
+// rounding, and the rest of the kernel is the bf16 path unchanged. The
+// pool stays int8 in device memory: no dequantized copy is made.
+//
 // What bounds it on an H100: bytes. Each tick reads every valid K/V
-// token of every lane once (2 * tokens * KVH * D * sizeof(T)) and does
-// ~4 flops per element read, far below the ~295 flops/byte at which
-// the tensor cores would become the limit.
+// token of every lane once (2 * tokens * KVH * D * sizeof(T), or for an
+// int8 pool 2 * tokens * KVH * (D + 4): values and scales) and does ~4
+// flops per element read, far below the ~295 flops/byte at which the
+// tensor cores would become the limit.
 //
 // Design (simple first, see PERF.md for its time against the bound):
 // - one thread block per (lane, KV head); the block holds all
@@ -51,6 +60,8 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
+  const float* k_scale;   // int8 pools: [rows, KVH] fp32, else null
+  const float* v_scale;
   const uint8_t* valid;   // [B, S, lane_len] bool
   const int32_t* table;   // [B, max_blocks], or null for a slot pool
   void* out;              // [B, S, H, D]
@@ -100,6 +111,90 @@ __host__ __device__ constexpr size_t align16(size_t x) {
   return (x + 15) & ~size_t(15);
 }
 
+// How the pool is stored: in the query's dtype, or int8 rounded through
+// fp32 or bf16 after dequantization. Shared memory holds the query's
+// dtype in the first case and fp32 otherwise.
+enum PoolMode { kSameAsQ = 0, kInt8Fp32 = 1, kInt8Bf16 = 2 };
+
+template <typename T, int MODE>
+struct Tile {
+  using type = T;
+};
+template <typename T>
+struct Tile<T, kInt8Fp32> {
+  using type = float;
+};
+template <typename T>
+struct Tile<T, kInt8Bf16> {
+  using type = float;
+};
+
+// Stage the tile's K and V rows [t0, t0 + n) into shared memory; rows
+// past the lane end are zero.
+template <typename T, int D, int MODE, int PITCH_K>
+__device__ __forceinline__ void stage_tile(const Params& p, int b, int kvh,
+                                           int t0, int n,
+                                           typename Tile<T, MODE>::type* k_s,
+                                           typename Tile<T, MODE>::type* v_s) {
+  if constexpr (MODE == kSameAsQ) {
+    // 16-byte copies of the pool's own elements
+    constexpr int kVec = 16 / sizeof(T);
+    constexpr int kVecPerRow = D / kVec;
+    const T* kp = static_cast<const T*>(p.k);
+    const T* vp = static_cast<const T*>(p.v);
+    for (int i = threadIdx.x; i < kTile * kVecPerRow; i += kThreads) {
+      const int t = i / kVecPerRow, c = i % kVecPerRow;
+      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+      if (t < n) {
+        const int64_t off = (token_row(p, b, t0 + t) * p.KVH + kvh) * D;
+        kv = reinterpret_cast<const uint4*>(kp + off)[c];
+        vv = reinterpret_cast<const uint4*>(vp + off)[c];
+      }
+      reinterpret_cast<uint4*>(k_s + t * PITCH_K)[c] = kv;
+      reinterpret_cast<uint4*>(v_s + t * D)[c] = vv;
+    }
+  } else {
+    // 16 int8 values per thread and step, dequantized in registers:
+    // fp32(int8) * scale, rounded to the compute dtype, kept as fp32
+    constexpr int kVecPerRow = D / 16;
+    const int8_t* kp = static_cast<const int8_t*>(p.k);
+    const int8_t* vp = static_cast<const int8_t*>(p.v);
+    for (int i = threadIdx.x; i < kTile * kVecPerRow; i += kThreads) {
+      const int t = i / kVecPerRow, c = i % kVecPerRow;
+      float kf[16], vf[16];
+      if (t < n) {
+        const int64_t head = token_row(p, b, t0 + t) * p.KVH + kvh;
+        const uint4 kraw = reinterpret_cast<const uint4*>(kp + head * D)[c];
+        const uint4 vraw = reinterpret_cast<const uint4*>(vp + head * D)[c];
+        const int8_t* ke = reinterpret_cast<const int8_t*>(&kraw);
+        const int8_t* ve = reinterpret_cast<const int8_t*>(&vraw);
+        const float ks = p.k_scale[head], vs = p.v_scale[head];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          kf[j] = (float)ke[j] * ks;
+          vf[j] = (float)ve[j] * vs;
+          if constexpr (MODE == kInt8Bf16) {
+            kf[j] = __bfloat162float(__float2bfloat16(kf[j]));
+            vf[j] = __bfloat162float(__float2bfloat16(vf[j]));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) kf[j] = vf[j] = 0.f;
+      }
+      float4* kd = reinterpret_cast<float4*>(k_s + t * PITCH_K + c * 16);
+      float4* vd = reinterpret_cast<float4*>(v_s + t * D + c * 16);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        kd[j] = make_float4(kf[4 * j], kf[4 * j + 1], kf[4 * j + 2],
+                            kf[4 * j + 3]);
+        vd[j] = make_float4(vf[4 * j], vf[4 * j + 1], vf[4 * j + 2],
+                            vf[4 * j + 3]);
+      }
+    }
+  }
+}
+
 // Shared-memory carve-up, used identically by host and device.
 template <typename T, int D>
 struct Smem {
@@ -126,12 +221,12 @@ struct Smem {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(Params p) {
-  using S_ = Smem<T, D>;
+  using TS = typename Tile<T, MODE>::type;  // staged K/V element
+  using S_ = Smem<TS, D>;
   constexpr int kVec = S_::kVec;
-  constexpr int kVecPerRow = D / kVec;
   constexpr int kPitchK = S_::kPitchK;
 
   const int b = blockIdx.x / p.KVH;
@@ -153,12 +248,10 @@ __global__ void __launch_bounds__(kThreads)
   float* m_s = reinterpret_cast<float*>(smem + S_::stat_off(R));
   float* l_s = m_s + R;
   float* c_s = l_s + R;
-  T* k_s = reinterpret_cast<T*>(smem + S_::k_off(R));
-  T* v_s = reinterpret_cast<T*>(smem + S_::v_off(R));
+  TS* k_s = reinterpret_cast<TS*>(smem + S_::k_off(R));
+  TS* v_s = reinterpret_cast<TS*>(smem + S_::v_off(R));
 
   const T* q = static_cast<const T*>(p.q);
-  const T* kp = static_cast<const T*>(p.k);
-  const T* vp = static_cast<const T*>(p.v);
   const uint8_t* valid = p.valid + (int64_t)b * S * L;
 
   for (int i = tid; i < R * D; i += kThreads) {
@@ -193,19 +286,7 @@ __global__ void __launch_bounds__(kThreads)
       if (!__syncthreads_or(any)) continue;
     }
 
-    // Stage the tile's K and V rows (16-byte loads; past the lane end
-    // the tile is zero-filled).
-    for (int i = tid; i < kTile * kVecPerRow; i += kThreads) {
-      const int t = i / kVecPerRow, c = i % kVecPerRow;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (t < n) {
-        const int64_t off = (token_row(p, b, t0 + t) * p.KVH + kvh) * D;
-        kv = reinterpret_cast<const uint4*>(kp + off)[c];
-        vv = reinterpret_cast<const uint4*>(vp + off)[c];
-      }
-      reinterpret_cast<uint4*>(k_s + t * kPitchK)[c] = kv;
-      reinterpret_cast<uint4*>(v_s + t * D)[c] = vv;
-    }
+    stage_tile<T, D, MODE, kPitchK>(p, b, kvh, t0, n, k_s, v_s);
     __syncthreads();
 
     // Scores and the online-softmax update: one warp per row, one token
@@ -215,12 +296,12 @@ __global__ void __launch_bounds__(kThreads)
       float score = neg_inf;  // past the lane end: weight exactly 0
       if (lane < n) {
         const float* qrow = q_s + r * D;
-        const T* krow = k_s + lane * kPitchK;
+        const TS* krow = k_s + lane * kPitchK;
         float dot = 0.f;
 #pragma unroll 4
         for (int d0 = 0; d0 < D; d0 += kVec) {
           uint4 raw = *reinterpret_cast<const uint4*>(krow + d0);
-          const T* e = reinterpret_cast<const T*>(&raw);
+          const TS* e = reinterpret_cast<const TS*>(&raw);
 #pragma unroll
           for (int j = 0; j < kVec; ++j) dot += qrow[d0 + j] * to_float(e[j]);
         }
@@ -263,42 +344,57 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int MODE>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int R = (p.H / p.KVH) * p.S;
-  const size_t smem = Smem<T, D>::bytes(R);
+  const size_t smem = Smem<typename Tile<T, MODE>::type, D>::bytes(R);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<T, D>,
+        decode_attention_kernel<T, D, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  decode_attention_kernel<T, D>
+  decode_attention_kernel<T, D, MODE>
       <<<p.B * p.KVH, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_mode(const Params& p, int mode, cudaStream_t stream) {
+  if (mode == kSameAsQ) return launch<T, D, kSameAsQ>(p, stream);
+  if (mode == kInt8Fp32) return launch<T, D, kInt8Fp32>(p, stream);
+  if (mode == kInt8Bf16) return launch<T, D, kInt8Bf16>(p, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16 (q, pools and output share it). Returns a
+// dtype: 0 = fp32, 1 = bf16 (q and the output share it). mode: a
+// PoolMode; 0 = the pools in q's dtype, 1 or 2 = int8 pools with fp32
+// scales k_scale / v_scale, dequantized through fp32 or bf16. Returns a
 // cudaError_t: 0 when the launch was accepted. The Python wrapper has
 // already checked shapes, dtypes, contiguity and alignment.
 int fstpu_decode_attention(const void* q, const void* k, const void* v,
+                           const void* k_scale, const void* v_scale,
                            const void* valid, const void* table, void* out,
                            int B, int S, int H, int KVH, int D,
                            int lane_len, int block_size, int max_blocks,
-                           int num_blocks, int dtype, void* stream) {
+                           int num_blocks, int dtype, int mode,
+                           void* stream) {
   if (B == 0) return 0;
-  Params p{q, k, v, static_cast<const uint8_t*>(valid),
+  Params p{q, k, v, static_cast<const float*>(k_scale),
+           static_cast<const float*>(v_scale),
+           static_cast<const uint8_t*>(valid),
            static_cast<const int32_t*>(table), out, B, S, H, KVH,
            lane_len, block_size, max_blocks, num_blocks};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(p, st);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(p, st);
-  if (dtype == 0 && D == 128) return launch<float, 128>(p, st);
-  if (dtype == 0 && D == 64) return launch<float, 64>(p, st);
+  if (dtype == 1 && D == 128)
+    return launch_mode<__nv_bfloat16, 128>(p, mode, st);
+  if (dtype == 1 && D == 64) return launch_mode<__nv_bfloat16, 64>(p, mode, st);
+  if (dtype == 0 && D == 128) return launch_mode<float, 128>(p, mode, st);
+  if (dtype == 0 && D == 64) return launch_mode<float, 64>(p, mode, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,6 +19,10 @@ all equal). Three layouts share the entry point, as in the reference's
 - a ``block_table``: the paged pool, lanes indirect through per-slot
   block lists into a shared block pool.
 
+The two serving pools may be int8 (``KVCache.key_scales``): each step's
+K/V is quantized per (token, head) as it is written, and the seam
+dequantizes inside the read.
+
 The layers run as a plain loop over ``model.layers`` (the reference's
 ``scan_layers`` is only a parameter layout here). The cacheless forward
 takes ``attention_impl`` "dense", "flash" (kernel K1 through
@@ -46,6 +50,7 @@ from fengshen_tpu_torch.models.llama.configuration_llama import LlamaConfig
 from fengshen_tpu_torch.ops.attention import dot_product_attention
 from fengshen_tpu_torch.ops.embedding import embed_lookup
 from fengshen_tpu_torch.ops.flash_attention import flash_attention
+from fengshen_tpu_torch.ops.int8_matmul import quantize_kv
 from fengshen_tpu_torch.ops.kernels.decode_attention import decode_attention
 from fengshen_tpu_torch.ops.masks import causal_mask
 from fengshen_tpu_torch.ops.norms import RMSNorm
@@ -67,16 +72,31 @@ class KVCache:
     the lockstep and slot layouts, ``[num_blocks, block_size, KVH, D]``
     for the paged pool (with ``block_table [B, max_blocks]`` int32).
     ``index`` is the write cursor: a Python int for lockstep decode, a
-    ``[B]`` int64 tensor for the serving pools. Attention layers update
-    the tensors in place."""
+    ``[B]`` int64 tensor for the serving pools. An int8 pool holds int8
+    ``keys``/``values`` and per-layer fp32 ``key_scales``/``value_scales``
+    of the pool's leading shape (``[B, L, KVH]`` or ``[num_blocks,
+    block_size, KVH]``: one absmax scale per token and head, the
+    reference's ``cached_key_scale`` leaves); they are None for an
+    unquantized pool. Attention layers update the tensors in place."""
 
     def __init__(self, keys: List[torch.Tensor], values: List[torch.Tensor],
                  index: Union[int, torch.Tensor],
-                 block_table: Optional[torch.Tensor] = None):
+                 block_table: Optional[torch.Tensor] = None,
+                 key_scales: Optional[List[torch.Tensor]] = None,
+                 value_scales: Optional[List[torch.Tensor]] = None):
+        if (key_scales is None) != (value_scales is None):
+            raise ValueError("give both key_scales and value_scales or "
+                             "neither")
         self.keys = keys
         self.values = values
         self.index = index
         self.block_table = block_table
+        self.key_scales = key_scales
+        self.value_scales = value_scales
+
+    @property
+    def quantized(self) -> bool:
+        return self.key_scales is not None
 
     @classmethod
     def zeros(cls, config: LlamaConfig, batch: int, max_len: int,
@@ -175,7 +195,10 @@ class LlamaAttention(nn.Module):
             # copy; the plain version gathers (ops/kernels/decode_attention)
             view = self._update_cache(k, v, attention_mask, cache)
             out = decode_attention(q, view.k, view.v, view.valid,
-                                   block_table=view.block_table)
+                                   k_scale=view.k_scale,
+                                   v_scale=view.v_scale,
+                                   block_table=view.block_table,
+                                   dequant_dtype=dt)
         else:
             impl = cfg.attention_impl
             if impl not in ("dense", "flash") + SEQUENCE_IMPLS:
@@ -215,11 +238,15 @@ class LlamaAttention(nn.Module):
     def _update_cache(self, k, v, attention_mask,
                       cache: KVCache) -> CacheView:
         """Write this step's K/V at the cursor (in place) and return the
-        cache's view for the attention read (``modeling_llama.py:212``)."""
+        cache's view for the attention read (``modeling_llama.py:212``).
+        An int8 slot pool quantizes the step's K/V per (token, head) and
+        writes values and scales (:258-275); the view carries the raw
+        int8 pool and its scales, and the decode seam dequantizes."""
         if cache.block_table is not None:
             return self._update_paged_cache(k, v, attention_mask, cache)
         batch, seq = k.shape[:2]
         ck, cv = cache.keys[self.layer_idx], cache.values[self.layer_idx]
+        ks_all = vs_all = None
         max_len = ck.shape[1]
         dev = k.device
         steps = torch.arange(seq, device=dev)
@@ -231,12 +258,22 @@ class LlamaAttention(nn.Module):
             start = idx.clamp(0, max_len - seq)
             lanes = torch.arange(batch, device=dev)[:, None]
             pos = start[:, None] + steps[None]
+            if cache.quantized:
+                ks_all = cache.key_scales[self.layer_idx]
+                vs_all = cache.value_scales[self.layer_idx]
+                k, ks = quantize_kv(k)
+                v, vs = quantize_kv(v)
+                ks_all[lanes, pos] = ks
+                vs_all[lanes, pos] = vs
             ck[lanes, pos] = k.to(ck.dtype)
             cv[lanes, pos] = v.to(cv.dtype)
             q_pos = idx[:, None] + steps[None]                  # [B, S]
             valid = torch.arange(max_len, device=dev)[None, None] <= \
                 q_pos[:, :, None]
         else:
+            if cache.quantized:
+                raise ValueError("an int8 pool takes a [B] cursor (the "
+                                 "serving slot pool), not lockstep decode")
             start = min(max(int(idx), 0), max_len - seq)
             ck[:, start:start + seq] = k.to(ck.dtype)
             cv[:, start:start + seq] = v.to(cv.dtype)
@@ -249,7 +286,7 @@ class LlamaAttention(nn.Module):
             full = F.pad(attention_mask.long(),
                          (0, max_len - attention_mask.shape[1]), value=1)
             valid = valid & full[:, None, :].bool()
-        return CacheView(ck, cv, None, None, None, valid.contiguous())
+        return CacheView(ck, cv, ks_all, vs_all, None, valid.contiguous())
 
     def _update_paged_cache(self, k, v, attention_mask,
                             cache: KVCache) -> CacheView:
@@ -257,7 +294,9 @@ class LlamaAttention(nn.Module):
         K/V at ``table[lane, p // bs] * bs + p % bs`` for each position
         ``p = idx + 0..seq-1`` (a window may cross a block boundary).
         Inactive lanes are parked on block 0, the null block, which
-        absorbs their writes and is never read unmasked."""
+        absorbs their writes and is never read unmasked. An int8 pool
+        quantizes the step's K/V per (token, head) and scatters values
+        and scales alike (:362-393)."""
         batch, seq, n_kv, head_dim = k.shape
         pool_k = cache.keys[self.layer_idx]
         pool_v = cache.values[self.layer_idx]
@@ -279,8 +318,18 @@ class LlamaAttention(nn.Module):
         pos = (blk * block_size + p % block_size).reshape(-1)
         flat_k = pool_k.view(num_blocks * block_size, n_kv, head_dim)
         flat_v = pool_v.view(num_blocks * block_size, n_kv, head_dim)
-        flat_k[pos] = k.reshape(batch * seq, n_kv, head_dim).to(flat_k.dtype)
-        flat_v[pos] = v.reshape(batch * seq, n_kv, head_dim).to(flat_v.dtype)
+        k = k.reshape(batch * seq, n_kv, head_dim)
+        v = v.reshape(batch * seq, n_kv, head_dim)
+        ks_all = vs_all = None
+        if cache.quantized:
+            ks_all = cache.key_scales[self.layer_idx]
+            vs_all = cache.value_scales[self.layer_idx]
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+            ks_all.view(num_blocks * block_size, n_kv)[pos] = ks
+            vs_all.view(num_blocks * block_size, n_kv)[pos] = vs
+        flat_k[pos] = k.to(flat_k.dtype)
+        flat_v[pos] = v.to(flat_v.dtype)
         valid = torch.arange(virt_len, device=dev)[None, None] <= \
             p[:, :, None]
         if attention_mask is not None:
@@ -288,7 +337,7 @@ class LlamaAttention(nn.Module):
             if m.shape[1] < virt_len:
                 m = F.pad(m, (0, virt_len - m.shape[1]), value=1)
             valid = valid & m[:, None, :].bool()
-        return CacheView(pool_k, pool_v, None, None, table,
+        return CacheView(pool_k, pool_v, ks_all, vs_all, table,
                          valid.contiguous())
 
 

@@ -83,9 +83,11 @@ class KernelEntry:
     replaces: str
     #: launches of the kernel itself (the wrapper adds one per launch)
     launches: int = 0
-    #: calls on the card that the seam sent to the dense lowering
-    #: instead (decode_attention: query windows longer than the kernel
-    #: serves, i.e. prefill)
+    #: calls that the seam sent to the dense lowering instead
+    #: (decode_attention: query windows on the card longer than the
+    #: kernel serves, i.e. prefill; block_sparse_attention_fwd:
+    #: ``impl="sparse"`` calls with a bias, mask, dropout or segment ids,
+    #: or on CPU tensors, as the reference falls back)
     dense_calls: int = 0
 
 
@@ -143,6 +145,7 @@ def log_dispatch(log: Optional[Callable[[dict], None]] = None,
 # Imported after the seam exists so each kernel module can register
 # itself; importing a kernel module builds nothing.
 
+from fengshen_tpu_torch.ops.kernels import block_sparse_attention  # noqa: E402,F401
 from fengshen_tpu_torch.ops.kernels import decode_attention  # noqa: E402,F401
 from fengshen_tpu_torch.ops.kernels import flash_attention  # noqa: E402,F401
 from fengshen_tpu_torch.ops.kernels import fused_ce  # noqa: E402,F401

@@ -135,10 +135,11 @@ def library_loaded() -> bool:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fstpu_decode_attention.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,          # q k v valid table out
+        ptr, ptr, ptr, ptr, ptr,               # q k v k_scale v_scale
+        ptr, ptr, ptr,                         # valid table out
         i32, i32, i32, i32, i32,               # B S H KVH D
         i32, i32, i32, i32,                    # lane_len bs max_blocks nb
-        i32, ptr]                              # dtype code, stream
+        i32, i32, ptr]                         # dtype, pool mode, stream
     lib.fstpu_decode_attention.restype = i32
     lib.fstpu_flash_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,     # q k v seg_q seg_k out lse
@@ -170,5 +171,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         ptr, ptr, ptr, ptr,                    # x d sum dk
         i32, i32, i32, i32, i32, ptr]          # first T H V, dtype, stream
     lib.fstpu_ce_bwd_dk.restype = i32
+    for name in ("fstpu_bs_fwd", "fstpu_bs_bwd_dkv", "fstpu_bs_bwd_dq"):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr,      # q k v dout lse_in delta
+            ptr, ptr, ptr,                     # out out2 lse_out
+            ptr, ptr,                          # block list: ptr, idx
+            i32, i32, i32, i32, i32, i32,      # B Sq Sk H D block
+            i32, ptr]                          # dtype code, stream
+        fn.restype = i32
     lib.fstpu_error_string.argtypes = [i32]
     lib.fstpu_error_string.restype = ctypes.c_char_p

@@ -14,12 +14,21 @@
   launch.
 - :func:`torch_decode_attention` is the plain version, a copy of
   ``xla_decode_attention`` (``:117-150``): take-gather of the paged
-  pool, GQA repeat, then dense attention.
+  pool, dequantization of an int8 window, GQA repeat, then dense
+  attention.
+
+int8 pools (the int8 branch, ``:176-181``) come with fp32 per-(token,
+head) scales ``k_scale``/``v_scale`` of the pool's leading shape and the
+compute dtype ``dequant_dtype`` (fp32 when None). Both versions
+dequantize as ``dequantize_kv`` does, ``int8 -> fp32 x scale -> rounded
+to dequant_dtype``; the kernel does it in registers, so the pool stays
+int8 in device memory and no dequantized copy of it is ever made.
 
 The kernel's rules are its own (the 128-multiples of the TPU kernel's
 ``pallas_decode_eligible`` were TPU tiling rules): head_dim 64 or 128,
-any paged block size that is a multiple of 8, bf16 or fp32 pools in the
-query's dtype, and at most 64 query rows per KV head (H/KVH * S).
+any paged block size that is a multiple of 8, q in bf16 or fp32, pools
+in q's dtype or int8 with both fp32 scale tensors and a bf16 or fp32
+``dequant_dtype``, and at most 64 query rows per KV head (H/KVH * S).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from typing import Optional
 import torch
 
 from fengshen_tpu_torch.ops.attention import dot_product_attention
+from fengshen_tpu_torch.ops.int8_matmul import dequantize_kv
 from fengshen_tpu_torch.ops.kernels import (KernelError, kernel_choice,
                                             register_kernel)
 
@@ -43,6 +53,13 @@ HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _scales_given(k_scale, v_scale) -> bool:
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("decode_attention: give both k_scale and v_scale "
+                         "(an int8 pool) or neither")
+    return k_scale is not None
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor, *,
                      k_scale: Optional[torch.Tensor] = None,
@@ -52,23 +69,29 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``q [B, S, H, D]``; ``k/v`` a slot pool ``[B, L, KVH, D]`` or, with
     ``block_table [B, max_blocks]`` int32, a paged pool
     ``[num_blocks, block_size, KVH, D]``; ``valid [B, S, L]`` bool over
-    the (virtual) lane. Returns ``[B, S, H, D]`` in q's dtype."""
-    del dequant_dtype
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8 KV pools are not yet ported")
+    the (virtual) lane; an int8 pool's fp32 scales ``k_scale``/``v_scale``
+    ``[B, L, KVH]`` or ``[num_blocks, block_size, KVH]``. Returns
+    ``[B, S, H, D]`` in q's dtype."""
+    kw = dict(k_scale=k_scale, v_scale=v_scale, block_table=block_table,
+              dequant_dtype=dequant_dtype)
     if kernel_choice("decode_attention", q) == "cuda":
         if q.shape[1] <= MAX_QUERY_WINDOW:
-            return cuda_decode_attention(q, k, v, valid,
-                                         block_table=block_table)
+            return cuda_decode_attention(q, k, v, valid, **kw)
         ENTRY.dense_calls += 1
-    return torch_decode_attention(q, k, v, valid, block_table=block_table)
+    return torch_decode_attention(q, k, v, valid, **kw)
 
 
 def torch_decode_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, valid: torch.Tensor, *,
-                           block_table: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """The plain version: ``xla_decode_attention`` op for op."""
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           block_table: Optional[torch.Tensor] = None,
+                           dequant_dtype=None) -> torch.Tensor:
+    """The plain version: ``xla_decode_attention`` op for op. A paged
+    int8 pool is gathered first and the gathered window dequantized; a
+    slot int8 pool is dequantized in place."""
+    dt = torch.float32 if dequant_dtype is None else dequant_dtype
+    quantized = _scales_given(k_scale, v_scale)
     if block_table is not None:
         num_blocks, block_size = k.shape[:2]
         batch = q.shape[0]
@@ -80,6 +103,14 @@ def torch_decode_attention(q: torch.Tensor, k: torch.Tensor,
                       ).reshape(batch, virt_len)
         k = flat_k[gather_idx]
         v = flat_v[gather_idx]
+        if quantized:
+            flat_ks = k_scale.reshape(num_blocks * block_size, -1)
+            flat_vs = v_scale.reshape(num_blocks * block_size, -1)
+            k = dequantize_kv(k, flat_ks[gather_idx], dt)
+            v = dequantize_kv(v, flat_vs[gather_idx], dt)
+    elif quantized:
+        k = dequantize_kv(k, k_scale, dt)
+        v = dequantize_kv(v, v_scale, dt)
     n_heads, kv_heads = q.shape[2], k.shape[2]
     if kv_heads != n_heads:
         rep = n_heads // kv_heads
@@ -88,7 +119,8 @@ def torch_decode_attention(q: torch.Tensor, k: torch.Tensor,
     return dot_product_attention(q, k, v, mask=valid[:, None])
 
 
-def check_eligible(q, k, v, valid, block_table=None) -> None:
+def check_eligible(q, k, v, valid, block_table=None, k_scale=None,
+                   v_scale=None, dequant_dtype=None) -> None:
     """Raise ``ValueError`` for anything the kernel does not take."""
     def need(ok, what):
         if not ok:
@@ -100,8 +132,22 @@ def check_eligible(q, k, v, valid, block_table=None) -> None:
     need(1 <= s <= MAX_QUERY_WINDOW,
          f"query window S={s} outside 1..{MAX_QUERY_WINDOW}")
     need(q.dtype in _DTYPE_CODE, f"dtype {q.dtype} (bf16 or fp32 only)")
-    need(k.dtype == q.dtype and v.dtype == q.dtype,
-         f"pool dtype {k.dtype}/{v.dtype} must equal q dtype {q.dtype}")
+    scales = []
+    if _scales_given(k_scale, v_scale):
+        need(k.dtype == torch.int8 and v.dtype == torch.int8,
+             f"scales given with a {k.dtype}/{v.dtype} pool (int8 only)")
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            need(t.dtype == torch.float32 and
+                 tuple(t.shape) == tuple(k.shape[:3]),
+                 f"{name} must be fp32 {tuple(k.shape[:3])}, got "
+                 f"{t.dtype} {tuple(t.shape)}")
+            scales.append((name, t))
+        need(dequant_dtype in (None,) + tuple(_DTYPE_CODE),
+             f"dequant_dtype {dequant_dtype} (bf16 or fp32 only)")
+    else:
+        need(k.dtype == q.dtype and v.dtype == q.dtype,
+             f"pool dtype {k.dtype}/{v.dtype} must equal q dtype "
+             f"{q.dtype}")
     need(head_dim in HEAD_DIMS, f"head_dim {head_dim} not in {HEAD_DIMS}")
     need(k.shape == v.shape, "k and v pools differ in shape")
     kv_heads = k.shape[2]
@@ -128,9 +174,10 @@ def check_eligible(q, k, v, valid, block_table=None) -> None:
          tuple(valid.shape) == (batch, s, lane_len),
          f"valid must be bool [{batch}, {s}, {lane_len}], got "
          f"{valid.dtype} {tuple(valid.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("valid", valid)):
+    operands = [("q", q), ("k", k), ("v", v), ("valid", valid)] + scales
+    for name, t in operands:
         need(t.is_contiguous(), f"{name} not contiguous")
-    need(q.is_cuda and all(t.device == q.device for t in (k, v, valid)),
+    need(q.is_cuda and all(t.device == q.device for _, t in operands),
          "all operands on one CUDA device")
     for name, t in (("k", k), ("v", v)):
         need(t.data_ptr() % 16 == 0, f"{name} not 16-byte aligned")
@@ -138,13 +185,16 @@ def check_eligible(q, k, v, valid, block_table=None) -> None:
 
 def cuda_decode_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, valid: torch.Tensor, *,
-                          block_table: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None,
+                          block_table: Optional[torch.Tensor] = None,
+                          dequant_dtype=None) -> torch.Tensor:
     """Launch the kernel. Raises ``ValueError`` for an ineligible shape
     and ``KernelError`` when the kernel cannot build or launch."""
     from fengshen_tpu_torch.ops.kernels import build
 
-    check_eligible(q, k, v, valid, block_table)
+    check_eligible(q, k, v, valid, block_table, k_scale, v_scale,
+                   dequant_dtype)
     cap = torch.cuda.get_device_capability(q.device)
     if cap[0] != 9:
         raise KernelError(f"decode_attention kernel is built for sm_90a; "
@@ -161,13 +211,21 @@ def cuda_decode_attention(q: torch.Tensor, k: torch.Tensor,
         block_size, max_blocks = k.shape[1], block_table.shape[1]
         lane_len, num_blocks = max_blocks * block_size, k.shape[0]
         table_ptr = block_table.data_ptr()
+    # pool mode: 0 = the pool in q's dtype; int8 rounded through fp32 (1)
+    # or through bf16 (2) after dequantization
+    if k_scale is None:
+        mode, ks_ptr, vs_ptr = 0, None, None
+    else:
+        mode = 2 if dequant_dtype == torch.bfloat16 else 1
+        ks_ptr, vs_ptr = k_scale.data_ptr(), v_scale.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.fstpu_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            table_ptr, out.data_ptr(), batch, s, n_heads, kv_heads,
-            head_dim, lane_len, block_size, max_blocks, num_blocks,
-            _DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr, vs_ptr,
+            valid.data_ptr(), table_ptr, out.data_ptr(), batch, s, n_heads,
+            kv_heads, head_dim, lane_len, block_size, max_blocks,
+            num_blocks, _DTYPE_CODE[q.dtype], mode,
+            ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.fstpu_error_string(rc).decode(errors="replace")
         raise KernelError(f"decode_attention kernel launch failed: "

@@ -7,6 +7,7 @@ from fengshen_tpu_torch.serving.engine import (
     QueueFull, Request)
 from fengshen_tpu_torch.serving.paged_cache import (BlockAllocator,
                                                     assign_paged,
+                                                    assign_slot_quantized,
                                                     blocks_for_tokens,
                                                     init_pool_cache)
 
@@ -15,4 +16,4 @@ __all__ = ["DEFAULT_BUCKETS", "BucketLadder", "assign_slot",
            "FINISHED", "QUEUED", "REJECTED", "RUNNING",
            "ContinuousBatchingEngine", "EngineConfig", "EngineStopped",
            "PromptTooLong", "QueueFull", "Request", "BlockAllocator", "assign_paged",
-           "blocks_for_tokens", "init_pool_cache"]
+           "assign_slot_quantized", "blocks_for_tokens", "init_pool_cache"]

@@ -28,8 +28,20 @@ def init_slot_cache(model, num_slots: int) -> KVCache:
 def assign_slot(pool: KVCache, primed: KVCache, slot: int) -> None:
     """Copy a batch-1 primed lockstep cache (the direct output of
     ``utils.generate._prefill_cache``) into lane ``slot``. The full lane
-    is overwritten, so stale K/V from the evicted request cannot leak."""
-    for dst, src in zip(pool.keys + pool.values, primed.keys + primed.values):
+    is overwritten, so stale K/V from the evicted request cannot leak.
+    Scales travel with their values when both caches carry them (the
+    reference maps this copy over every leaf of the pool's pytree); an
+    int8 pool fed an unquantized lane goes through
+    ``paged_cache.assign_slot_quantized``."""
+    if pool.quantized != primed.quantized:
+        raise ValueError("assign_slot copies like into like; quantize an "
+                         "fp lane into an int8 pool with "
+                         "assign_slot_quantized")
+    pairs = list(zip(pool.keys + pool.values, primed.keys + primed.values))
+    if pool.quantized:
+        pairs += zip(pool.key_scales + pool.value_scales,
+                     primed.key_scales + primed.value_scales)
+    for dst, src in pairs:
         dst[slot].copy_(src[0])
     pool.index[slot] = int(primed.index)
 

@@ -1,13 +1,15 @@
 """Continuous-batching inference engine: the port of
 ``fengshen_tpu/serving/engine.py`` (greedy decode over slot and paged
-pools in the compute dtype).
+pools, in the compute dtype or int8).
 
 Many requests share a fixed pool of ``num_slots`` KV lanes:
 
 - admission: a queued prompt is LEFT-padded to a bucket
   (:class:`~.buckets.BucketLadder`), prefilled batch-1 through the
   model's own cache (``utils.generate._prefill_cache``) and copied into
-  a free lane (``cache.assign_slot`` / ``paged_cache.assign_paged``);
+  a free lane (``cache.assign_slot``; an int8 slot pool quantizes it
+  in with ``paged_cache.assign_slot_quantized``; a paged pool takes
+  ``paged_cache.assign_paged``, which quantizes into an int8 pool);
 - decode: every tick runs ONE forward over all ``num_slots`` lanes, each
   at its own cursor; on the card its attention is the decode kernel;
 - reclaim: a finished, cancelled or expired lane goes to the next queued
@@ -23,7 +25,7 @@ bookkeeping between ticks. Greedy output is token-identical to
 ``utils.generate.generate`` (the tests pin it).
 
 Not yet ported from the reference: sampling, logits controls,
-speculative ticks, int8 KV, the commit journal, streams, timelines,
+speculative ticks, the commit journal, streams, timelines,
 the flight recorder, AOT, drain and evacuation. Options that ask for
 them raise ``NotImplementedError``.
 """
@@ -47,6 +49,7 @@ from fengshen_tpu_torch.serving.cache import assign_slot, reset_free_slots
 from fengshen_tpu_torch.serving.metrics import EngineMetrics
 from fengshen_tpu_torch.serving.paged_cache import (BlockAllocator,
                                                     assign_paged,
+                                                    assign_slot_quantized,
                                                     blocks_for_tokens,
                                                     init_pool_cache)
 from fengshen_tpu_torch.utils.generate import (_prefill_cache,
@@ -95,7 +98,9 @@ class EngineConfig:
     min_length: int = 0
     seed: int = 0
     kv_layout: str = "slot"                  # "slot" | "paged"
-    kv_dtype: str = "fp32"                   # unquantized pool
+    # "fp32" keeps the pool in the compute dtype; "int8" stores K/V
+    # quantized with per-(token, head) absmax scales (~half the bytes)
+    kv_dtype: str = "fp32"                   # "fp32" | "int8"
     kv_block_size: int = 64                  # tokens per paged block
     kv_num_blocks: Optional[int] = None      # default: slot-parity + null
     kv_max_blocks_per_slot: Optional[int] = None  # default: max_len/bs
@@ -142,8 +147,6 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} (default {default!r}): "
                     f"{_NOT_PORTED}")
-        if self.kv_dtype == "int8":
-            raise NotImplementedError(f"kv_dtype='int8': {_NOT_PORTED}")
         if self.do_sample:
             raise NotImplementedError(f"do_sample=True: {_NOT_PORTED}")
         if (self.repetition_penalty != 1.0 or self.no_repeat_ngram_size
@@ -243,8 +246,11 @@ class ContinuousBatchingEngine:
                 f"{self.seq_capacity}")
 
         self._cache = self._init_pool()
-        self._kv_bytes = sum(t.numel() * t.element_size()
-                             for t in self._cache.keys + self._cache.values)
+        pool = self._cache
+        self._kv_bytes = sum(
+            t.numel() * t.element_size() for t in
+            pool.keys + pool.values +
+            (pool.key_scales + pool.value_scales if pool.quantized else []))
         self._mask = torch.zeros((S, self.seq_capacity), dtype=torch.long,
                                  device=self.device)
         # host-side per-slot state (authoritative for scheduling)
@@ -479,6 +485,8 @@ class ContinuousBatchingEngine:
                     continue
                 if self.paged:
                     assign_paged(self._cache, primed, slot, blocks)
+                elif self._cache.quantized:
+                    assign_slot_quantized(self._cache, primed, slot)
                 else:
                     assign_slot(self._cache, primed, slot)
                 # mask lane: the padded prompt, open from the bucket edge

@@ -6,6 +6,9 @@ interpret mode, over slot and paged pools, S in {1, 5}, MHA and GQA, with
 a fully masked lane in every case. fp32, atol/rtol 2e-5: the Pallas
 kernel reassociates the softmax across blocks (online softmax), which
 moves fp32 results by a few 1e-7; the xla lowering is the same formula.
+The int8 branch likewise (int8 pools with fp32 per-(token, head)
+scales, dequantized through fp32 or bf16), after ``quantize_kv`` /
+``dequantize_kv`` are held bitwise to the JAX package's.
 
 The CUDA kernel itself runs only on the card: ``test_cuda_kernel_matches_plain``
 is marked ``gpu`` and skips without one. JAX is imported inside the CPU
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from fengshen_tpu_torch.ops.int8_matmul import dequantize_kv, quantize_kv
 from fengshen_tpu_torch.ops.kernels import get_entry
 from fengshen_tpu_torch.ops.kernels.decode_attention import (
     check_eligible, decode_attention, torch_decode_attention)
@@ -64,6 +68,121 @@ def _torch(*arrays):
     return [None if a is None else torch.from_numpy(a) for a in arrays]
 
 
+def _int8_pool(shape, seed):
+    """An int8 pool and its fp32 per-(token, head) scales, as
+    ``tests/test_pallas_kernels.py`` builds them."""
+    rng = np.random.RandomState(seed)
+    values = rng.randint(-127, 128, shape).astype(np.int8)
+    scales = (rng.rand(*shape[:-1]) * 0.02 + 0.001).astype(np.float32)
+    return values, scales
+
+
+def _int8_case(layout, s, seed, batch=3, n_heads=4, kv_heads=2,
+               head_dim=128, block_size=128, blocks_per_lane=2):
+    """The int8 decode case of ``tests/test_pallas_kernels.py:140-157``
+    (ragged fill, the last block partial; q * 0.3), with a parked lane
+    (lane 1: no valid position, on the null block when paged)."""
+    rng = np.random.RandomState(seed)
+    virt = block_size * blocks_per_lane
+    q = (rng.randn(batch, s, n_heads, head_dim) * 0.3).astype(np.float32)
+    valid = np.broadcast_to(np.arange(virt) < virt - 37,
+                            (batch, s, virt)).copy()
+    valid[1] = False
+    table = None
+    if layout == "paged":
+        nb = batch * blocks_per_lane + 1
+        shape = (nb, block_size, kv_heads, head_dim)
+        table = rng.permutation(np.arange(1, nb)).reshape(
+            batch, blocks_per_lane).astype(np.int32)
+        table[1] = 0
+    else:
+        shape = (batch, virt, kv_heads, head_dim)
+    k, ks = _int8_pool(shape, seed + 1)
+    v, vs = _int8_pool(shape, seed + 2)
+    return q, k, v, valid, table, ks, vs
+
+
+def test_quantize_kv_matches_jax_bitwise():
+    """int8 values and scales bitwise equal to the JAX package's, over
+    random vectors, an all-zero vector (scale 1e-8 / 127), vectors whose
+    absmax lands on +-127 exactly and exact rounding ties (k + 0.5)."""
+    import jax.numpy as jnp
+
+    from fengshen_tpu.ops.int8_matmul import dequantize_kv as jax_deq
+    from fengshen_tpu.ops.int8_matmul import quantize_kv as jax_quant
+    rng = np.random.RandomState(5)
+    x = (rng.randn(4, 6, 3, 16) * 2).astype(np.float32)
+    x[0, 0, 0] = 0.0
+    x[0, 1, 1] = -x[0, 1, 1]
+    x[1, 2, 0, 0] = 127.0                 # scale 1: every value its own
+    x[1, 2, 0, 1:] = np.arange(15) - 7.5  # ties at .5
+    x[1, 2, 1] = np.linspace(-254, 254, 16)   # scale 2: ties at odd ints
+    for dtype in (np.float32, "bfloat16"):
+        xj = jnp.asarray(x, dtype)
+        xt = torch.from_numpy(np.array(xj.astype(jnp.float32)))
+        if dtype == "bfloat16":
+            xt = xt.bfloat16()
+        q, scale = quantize_kv(xt)
+        jq, jscale = jax_quant(xj)
+        assert q.dtype == torch.int8 and scale.dtype == torch.float32
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
+        for dt, jdt in ((torch.float32, jnp.float32),
+                        (torch.bfloat16, jnp.bfloat16)):
+            got = dequantize_kv(q, scale, dt).float().numpy()
+            want = np.asarray(jax_deq(jq, jscale, jdt).astype(jnp.float32))
+            np.testing.assert_array_equal(got, want)
+    assert (quantize_kv(torch.zeros(2, 8))[0] == 0).all()
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+@pytest.mark.parametrize("s", [1, 5])
+@pytest.mark.parametrize("dequant", ["fp32", "bf16"])
+def test_int8_plain_matches_xla_and_pallas_interpret(layout, s, dequant):
+    """The int8 plain version against ``xla_decode_attention`` and the
+    Pallas kernel in interpret mode (GQA 4 over 2, a parked lane).
+    Dequantized through fp32: atol/rtol 2e-5 as above. Through bf16:
+    the xla lowering's output is bf16 and so is the plain version's
+    (bitwise to 1 bf16 ulp); the Pallas kernel keeps fp32 probabilities
+    and output, so against it the bar is 1e-2 absolute (bf16 rounding
+    of |out| <= 1)."""
+    import jax.numpy as jnp
+
+    from fengshen_tpu.ops.pallas.decode_attention import (
+        pallas_decode_attention, xla_decode_attention)
+    seed = 200 + 100 * (layout == "paged") + 10 * s
+    q, k, v, valid, table, ks, vs = _int8_case(layout, s, seed)
+    dt, jdt = {"fp32": (torch.float32, jnp.float32),
+               "bf16": (torch.bfloat16, jnp.bfloat16)}[dequant]
+    tq, tk, tv, tvalid, ttable, tks, tvs = _torch(q, k, v, valid, table, ks,
+                                                  vs)
+    out = torch_decode_attention(tq, tk, tv, tvalid, k_scale=tks,
+                                 v_scale=tvs, block_table=ttable,
+                                 dequant_dtype=dt)
+    assert out.shape == tq.shape and torch.isfinite(out.float()).all()
+    jkw = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+               dequant_dtype=jdt)
+    if table is not None:
+        jkw["block_table"] = jnp.asarray(table)
+    args = [jnp.asarray(a) for a in (q, k, v, valid)]
+    ref = np.asarray(xla_decode_attention(*args, **jkw).astype(jnp.float32))
+    pallas = np.asarray(pallas_decode_attention(
+        *args, interpret=True, **jkw).astype(jnp.float32))
+    got = out.float().numpy()
+    if dequant == "fp32":
+        np.testing.assert_allclose(got, ref, **TOL)
+        np.testing.assert_allclose(got, pallas, **TOL)
+    else:
+        np.testing.assert_allclose(got, ref, atol=2 ** -8, rtol=2 ** -8)
+        np.testing.assert_allclose(got, pallas, atol=1e-2, rtol=0)
+    # the parked lane is the uniform average of its dequantized values
+    lane = tv[1] if table is None else tv[0].repeat(2, 1, 1)
+    lane_s = tvs[1] if table is None else tvs[0].repeat(2, 1)
+    mean_v = dequantize_kv(lane, lane_s, dt).float().mean(0)
+    np.testing.assert_allclose(got[1, 0], mean_v.repeat_interleave(
+        2, dim=0).numpy(), atol=1e-2 if dequant == "bf16" else 2e-5)
+
+
 @pytest.mark.parametrize("layout", ["slot", "paged"])
 @pytest.mark.parametrize("s", [1, 5])
 @pytest.mark.parametrize("heads", [(4, 4), (4, 2)], ids=["mha", "gqa"])
@@ -95,8 +214,10 @@ def test_plain_matches_xla_and_pallas_interpret(layout, s, heads):
 
 
 def test_seam_takes_the_plain_version_on_cpu():
-    """CPU tensors go to the plain version and count no launch; int8
-    pools are not ported yet."""
+    """CPU tensors go to the plain version and count no launch, int8
+    pools with their scales included, which give the JAX package's
+    ``xla_decode_attention`` with the same scales; only one of
+    ``k_scale``/``v_scale`` raises."""
     q, k, v, valid, table = _case("paged", 1, 4, 2, seed=7)
     tq, tk, tv, tvalid, ttable = _torch(q, k, v, valid, table)
     entry = get_entry("decode_attention")
@@ -105,10 +226,27 @@ def test_seam_takes_the_plain_version_on_cpu():
     torch.testing.assert_close(
         out, torch_decode_attention(tq, tk, tv, tvalid, block_table=ttable),
         rtol=0, atol=0)
+    qk, ks = _int8_pool(k.shape, seed=8)
+    qv, vs = _int8_pool(v.shape, seed=9)
+    ti8 = _torch(qk, ks, qv, vs)
+    kw = dict(k_scale=ti8[1], v_scale=ti8[3], block_table=ttable)
+    out = decode_attention(tq, ti8[0], ti8[2], tvalid, **kw)
+    torch.testing.assert_close(
+        out, torch_decode_attention(tq, ti8[0], ti8[2], tvalid, **kw),
+        rtol=0, atol=0)
     assert (entry.launches, entry.dense_calls) == before
-    with pytest.raises(NotImplementedError):
-        decode_attention(tq, tk, tv, tvalid, k_scale=tk[..., 0],
-                         v_scale=tv[..., 0])
+    import jax.numpy as jnp
+
+    from fengshen_tpu.ops.pallas.decode_attention import xla_decode_attention
+    ref = xla_decode_attention(
+        *(jnp.asarray(a) for a in (q, qk, qv, valid)),
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+        block_table=jnp.asarray(table))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    for scales in (dict(k_scale=ti8[1]), dict(v_scale=ti8[3])):
+        with pytest.raises(ValueError, match="both k_scale and v_scale"):
+            decode_attention(tq, ti8[0], ti8[2], tvalid, block_table=ttable,
+                             **scales)
 
 
 @pytest.mark.parametrize("change,match", [
@@ -125,6 +263,36 @@ def test_kernel_rules(change, match):
     q, k, v, valid, table = _case(**kw)
     with pytest.raises(ValueError, match=match):
         check_eligible(*_torch(q, k, v, valid, table))
+
+
+@pytest.mark.parametrize("change,match", [
+    ("fp16_scales", "k_scale must be fp32"),
+    ("scale_shape", "k_scale must be fp32"),
+    ("bf16_pool", "int8 only"),
+    ("fp16_dequant", "dequant_dtype"),
+])
+def test_int8_kernel_rules(change, match):
+    """int8 pools need fp32 scales of the pool's leading shape, an int8
+    pool and a bf16 or fp32 compute dtype; the rules are checked before
+    the device."""
+    q, k, v, valid, table, ks, vs = _int8_case("paged", 1, seed=3)
+    tq, tk, tv, tvalid, ttable, tks, tvs = _torch(q, k, v, valid, table, ks,
+                                                  vs)
+    kw = dict(k_scale=tks, v_scale=tvs, dequant_dtype=torch.bfloat16)
+    pool_k = tk
+    if change == "fp16_scales":
+        kw["k_scale"] = tks.half()
+    elif change == "scale_shape":
+        kw["k_scale"] = tks[:, :-1]
+    elif change == "bf16_pool":
+        pool_k = tk.bfloat16()
+    else:
+        kw["dequant_dtype"] = torch.float16
+    with pytest.raises(ValueError, match=match):
+        check_eligible(tq, pool_k, tv, tvalid, ttable, **kw)
+    kw = dict(k_scale=tks, v_scale=tvs, dequant_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        check_eligible(tq.bfloat16(), tk, tv, tvalid, ttable, **kw)
 
 
 def test_eligible_shapes_stop_only_at_the_device():
@@ -163,3 +331,33 @@ def test_cuda_kernel_matches_plain(cuda_device, layout, s, dtype):
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+@pytest.mark.parametrize("s", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_kernel_matches_plain(cuda_device, layout, s, dtype):
+    """The int8 branch against the int8 plain version run in fp32 on the
+    same int8 inputs (dequantized through q's dtype), at an odd lane
+    length (paged: 3 blocks of 24) and GQA 6 over 2: each element within
+    1e-4 (fp32) or 2e-2 (bf16 output; the kernel keeps fp32
+    probabilities) of the plain output, and the parked lane finite."""
+    q, k, v, valid, table, ks, vs = _int8_case(
+        layout, s, seed=21, n_heads=6, kv_heads=2, block_size=24,
+        blocks_per_lane=3)
+    args = [None if a is None else torch.from_numpy(a).to(cuda_device)
+            for a in (q, k, v, valid, table, ks, vs)]
+    tq = args[0].to(dtype)
+    kw = dict(k_scale=args[5], v_scale=args[6], block_table=args[4],
+              dequant_dtype=dtype)
+    entry = get_entry("decode_attention")
+    before = entry.launches
+    out = decode_attention(tq, args[1], args[2], args[3], **kw)
+    torch.cuda.synchronize()
+    assert entry.launches == before + 1
+    ref = torch_decode_attention(tq.float(), args[1], args[2], args[3],
+                                 **kw).float()
+    assert torch.isfinite(out.float()).all()
+    atol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)

@@ -9,6 +9,12 @@
 - The port's continuous-batching engine (slot and paged pools,
   staggered admission, slot reclaim, eos) against the port's own
   ``generate``, exactly.
+- The port's int8-KV engine (slot and paged) against the JAX package's
+  int8-KV engine on the tiny model and prompts of
+  ``tests/test_serving_paged.py``, token for token, and against the
+  port's own unquantized pool with the reference's margin-aware bar (a
+  disagreement only where the fp top-2 gap is within 4x the measured
+  int8 round-trip noise).
 - ``BlockAllocator`` accounting, the engine's config gates, and one
   HTTP round trip through ``build_stdlib_server`` on ``127.0.0.1:0``.
 """
@@ -39,6 +45,7 @@ from fengshen_tpu_torch.api.main import (PipelineConfig, ServerConfig,
                                          start_continuous_engine)
 from fengshen_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                              params_from_jax)
+from fengshen_tpu_torch.models.llama.modeling_llama import KVCache
 from fengshen_tpu_torch.pipelines.text_generation import (IdTokenizer,
                                                           Pipeline)
 from fengshen_tpu_torch.serving import (BlockAllocator,
@@ -193,6 +200,150 @@ def test_paged_engine_defers_until_blocks_free(port_model, port_refs):
     assert eng.stats()["deferred_admissions"] == 1
 
 
+#: the int8 comparison's model, prompts and engine: those of
+#: tests/test_serving_paged.py (``_make``, ``_prompts(..., seed=11)``,
+#: ``test_int8_kv_margin_aware_agreement``)
+INT8_CFG = dict(vocab_size=97, hidden_size=32, intermediate_size=64,
+                num_hidden_layers=2, num_attention_heads=4,
+                max_position_embeddings=64, dtype="float32")
+INT8_LAYOUTS = {"paged": dict(kv_layout="paged", kv_block_size=16),
+                "slot": {}}
+
+
+def _int8_engine_config(layout, kv_dtype="int8"):
+    return dict(num_slots=2, buckets=(8, 16), max_new_tokens=10,
+                max_queue=16, kv_dtype=kv_dtype, **INT8_LAYOUTS[layout])
+
+
+@pytest.fixture(scope="module")
+def jax_int8():
+    """The JAX package's int8-KV engine on its tiny model: params and the
+    tokens each layout serves."""
+    from fengshen_tpu.serving import ContinuousBatchingEngine as JaxEngine
+    from fengshen_tpu.serving import EngineConfig as JaxEngineConfig
+    model = JaxLlama(JaxLlamaConfig(**INT8_CFG))
+    params = model.init(jax.random.PRNGKey(0),
+                        jnp.zeros((1, 4), jnp.int32))["params"]
+    prompts = _prompts((5, 11, 16, 7), seed=11)
+    served = {layout: JaxEngine(model, params, JaxEngineConfig(
+        **_int8_engine_config(layout))).generate_all(prompts)
+        for layout in INT8_LAYOUTS}
+    return jax.tree_util.tree_map(np.asarray, params), served
+
+
+@pytest.fixture(scope="module")
+def int8_model(jax_int8):
+    cfg = LlamaConfig(**INT8_CFG)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(jax_int8[0], cfg))
+    return model
+
+
+def _kv_roundtrip_noise(model, seq):
+    """The int8-KV logit perturbation, measured as the reference's
+    ``_kv_roundtrip_noise`` does: prime a cache on ``seq[:-1]``, round
+    its K/V through the pool's per-(token, head) quantization, decode
+    one step both ways, and return the max |logit| difference."""
+    from fengshen_tpu_torch.ops.int8_matmul import dequantize_kv, quantize_kv
+    from fengshen_tpu_torch.utils.generate import _prefill_cache
+    ids = torch.tensor(np.asarray(seq[:-1]), dtype=torch.long)[None]
+    mask = torch.ones_like(ids)
+    _, cache = _prefill_cache(model, ids, mask,
+                              torch.arange(ids.shape[1])[None])
+
+    def step(roundtrip):
+        c = KVCache([t.clone() for t in cache.keys],
+                    [t.clone() for t in cache.values], cache.index)
+        if roundtrip:
+            c.keys = [dequantize_kv(*quantize_kv(t), t.dtype) for t in c.keys]
+            c.values = [dequantize_kv(*quantize_kv(t), t.dtype)
+                        for t in c.values]
+        with torch.no_grad():
+            return model(torch.tensor([[int(seq[-1])]]),
+                         attention_mask=mask,
+                         position_ids=torch.tensor([[len(seq) - 1]]),
+                         cache=c)[0, -1]
+    return float((step(False) - step(True)).abs().max())
+
+
+def _assert_margin_aware_agreement(model, prompt, ref_tokens, test_tokens,
+                                   noise_scale=4.0):
+    """The reference's bar (``tests/test_serving_paged.py:225-250``):
+    only the first disagreement is judged, and there the fp top-2 gap of
+    the teacher-forced forward must be within ``noise_scale`` x the
+    measured round-trip noise."""
+    assert len(ref_tokens) == len(test_tokens)
+    for t, (a, b) in enumerate(zip(ref_tokens, test_tokens)):
+        if a == b:
+            continue
+        seq = np.concatenate([prompt, ref_tokens[:t + 1]])
+        with torch.no_grad():
+            logits = model(torch.tensor(seq, dtype=torch.long)[None])[0]
+        top2 = np.sort(logits[len(prompt) + t - 1].numpy())[-2:]
+        margin = float(top2[1] - top2[0])
+        noise = _kv_roundtrip_noise(model, seq[:len(prompt) + t])
+        assert margin <= noise_scale * noise, (
+            f"int8 KV flipped a confident position {t}: fp margin "
+            f"{margin:.4f} vs noise floor {noise:.4f}")
+        return
+
+
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_int8_engine_matches_jax_int8_engine(jax_int8, int8_model, layout):
+    """The port's int8 pool serves the JAX package's int8 tokens, and
+    holds the margin-aware bar against its own unquantized pool; /stats
+    reports the pool's bytes, values and scales."""
+    prompts = _prompts((5, 11, 16, 7), seed=11)
+    eng = ContinuousBatchingEngine(
+        int8_model, EngineConfig(**_int8_engine_config(layout)),
+        device="cpu")
+    served = eng.generate_all(prompts)
+    assert served == jax_int8[1][layout]
+    stats = eng.stats()
+    assert stats["kv_dtype"] == "int8"
+    cfg = int8_model.config
+    tokens = (eng.num_blocks * eng.block_size if layout == "paged"
+              else 2 * cfg.max_position_embeddings)
+    per_token = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * (
+        cfg.head_dim + 4)                     # int8 values + fp32 scale
+    assert stats["kv_cache_bytes"] == tokens * per_token
+    fp = ContinuousBatchingEngine(
+        int8_model, EngineConfig(**_int8_engine_config(layout, "fp32")),
+        device="cpu").generate_all(prompts)
+    for prompt, ref, out in zip(prompts, fp, served):
+        _assert_margin_aware_agreement(int8_model, prompt, ref, out)
+
+
+def test_int8_pool_served_over_http(jax_int8, int8_model):
+    """An ENGINE section naming ``kv_dtype: "int8"`` (as a server config
+    file gives it) serves the int8 tokens over HTTP, and /stats reports
+    the int8 pool."""
+    pipe = Pipeline(module=int8_model, tokenizer=IdTokenizer(),
+                    max_new_tokens=10, device="cpu")
+    engine = start_continuous_engine(pipe, _int8_engine_config("paged"))
+    server = build_stdlib_server(
+        ServerConfig(host="127.0.0.1", port=0, device="cpu"),
+        PipelineConfig(task="text_generation"), pipeline=pipe,
+        engine=engine)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        prompt = _prompts((5, 11, 16, 7), seed=11)[1]
+        out = _post(port, {"input_text": " ".join(map(str, prompt))})
+        assert out["result"] == " ".join(
+            map(str, jax_int8[1]["paged"][1]))
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=10) as r:
+            stats = json.loads(r.read())
+        assert (stats["kv_dtype"], stats["kv_layout"]) == ("int8", "paged")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=10)
+
+
 def test_block_allocator_accounting():
     alloc = BlockAllocator(6)
     assert (alloc.total_blocks, alloc.free_blocks) == (5, 5)
@@ -222,11 +373,13 @@ def test_engine_backpressure_and_config_gates(port_model):
         eng.submit(np.arange(3, 6))
     with pytest.raises(ValueError):
         eng.submit(np.arange(3, 6), max_new_tokens=0)
-    for kw in (dict(spec_mode="prompt_lookup"), dict(kv_dtype="int8"),
-               dict(do_sample=True), dict(repetition_penalty=1.2),
-               dict(min_length=3)):
+    for kw in (dict(spec_mode="prompt_lookup"), dict(do_sample=True),
+               dict(repetition_penalty=1.2), dict(min_length=3)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             EngineConfig(**kw)
+    assert EngineConfig(kv_dtype="int8").kv_dtype == "int8"
+    with pytest.raises(ValueError):
+        EngineConfig(kv_dtype="bf16")
     with pytest.raises(ValueError):
         EngineConfig(kv_layout="ring")
 
