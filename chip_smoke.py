@@ -6,14 +6,16 @@
 Phases (each raises on failure, so any failure exits non-zero):
 
 1. device: torch, CUDA and the card's name and power limit;
-2. build: the kernel library from ``fengshen_tpu_torch/csrc``;
+2. build: the kernel library from ``fengshen_tpu_torch/csrc``, with
+   ptxas's registers, spills and shared memory per tensor-core kernel;
 3. kernels: each kernel against its plain PyTorch version at the shapes
    the main paths give it, with its time, the plain version's, one
    PyTorch library call's (``library_ms``, a yardstick the port never
    calls) and the bound (the least time the card could take): K3 (paged
    decode attention) over bf16 pools and over int8 pools with fp32
    scales (a planted scale fault must be rejected), then K1 (flash
-   attention: forward, dK/dV, dQ);
+   attention: forward, dK/dV, dQ), and K1 timed at the long-context
+   attention shape (B 1, S 32768, 32 heads of 128) beside SDPA;
 4. serving path: Ziya-LLaMA-13B at full width and depth (bf16 weights
    made on the card from a seed) served through the stdlib HTTP server
    and the continuous-batching engine, first over a paged KV pool, then
@@ -24,8 +26,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    int8 KV pools (paged, then slot; K3's int8 branch), its tokens held
    to the bf16 pools' by the reference's margin-aware bar (at the first
    disagreement the bf16 top-2 gap must be within 4x the measured int8
-   round-trip noise), counts set to 0 just before each run and read
-   just after;
+   round-trip noise), and re-scored by one cacheless forward whose
+   attention reads K/V as the int8 pool holds them (every token within
+   TF_MARGIN of its argmax; a pool served with one KV head's scales
+   halved must fail this bar), counts set to 0 just before each run and
+   read just after;
 6. profile: a few decode ticks under ``torch.profiler``, over a bf16
    and over an int8 paged pool (device busy and idle share per tick,
    the kernels that take the time);
@@ -33,7 +38,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    pools through K3), its greedy tokens held to the cacheless dense
    forward within a margin derived from fp32 rounding; then served once
    more from an int8 pool, held to the fp32 pool's tokens by the
-   margin-aware bar;
+   margin-aware bar and to the int8 re-scoring (INT8_FP32_MARGIN; the
+   planted halved-scale pool must fail it);
 8. training path: ``finetune_ziya_llama.main`` at Ziya width with 4
    layers (fp32 master weights, bf16 compute, flash attention through K1,
    gradient checkpointing, AdamW) for 6 steps over one repeated batch
@@ -66,10 +72,12 @@ result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import tempfile
 import sys
@@ -122,6 +130,9 @@ K1_L2_TOL = 1e-2
 K1_LSE_ATOL = 1e-3
 #: the kernels' tile, and the tiles the planted faults leave out
 K1_TILE = 64
+#: K1 at the long-context path's attention shape (B, S, H, D), causal:
+#: timed only (phase 3)
+K1_LONG_SHAPE = (1, 32768, 32, 128)
 #: training phase (8): steps, layers, batch and sequence
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 6, 4, 1024
 #: step 1 with K1 against step 1 with the plain attention (same weights,
@@ -187,6 +198,17 @@ PROMPT_LENGTHS = (5, 40, 64, 65, 100, 130, 200, 300)   # buckets 64..512
 INT8_NOISE_SCALE = 4.0
 #: the KV head whose scales the planted int8 fault halves
 INT8_FAULT_HEAD = 3
+#: int8 re-scoring bar of the fp32 4-layer model (phase 7): served int8
+#: tokens against a cacheless fp32 forward whose attention reads the
+#: same round-tripped K and V. Both paths quantize the same K/V, which
+#: they compute with fp32 sums in another order (FP32_MARGIN's 1e-5
+#: logits); a value that lands within that of an int8 rounding boundary
+#: rounds to the next step (1/127 of its row's max) in one path only,
+#: which moves a logit by far less than the round trip's own 0.17-0.21
+#: logits. Sound runs on an H100 gave a worst gap of 8.7e-4 (PERF.md,
+#: PR 11), so 1e-2 leaves ten times that; the planted halved-scale pool
+#: gave 2.94 logits
+INT8_FP32_MARGIN = 1e-2
 
 K4_NAMES = ("block_sparse_attention_fwd", "block_sparse_attention_bwd_dkv",
             "block_sparse_attention_bwd_dq")
@@ -239,15 +261,65 @@ def phase_device():
 
 # -- phase 2 ------------------------------------------------------------
 
+def ptxas_report(log: str) -> dict:
+    """``nvcc -Xptxas -v`` per kernel: registers, stack frame and spill
+    bytes and static shared memory, keyed by the kernel's name (and
+    head_dim) as it appears in the mangled symbol. A stack frame means
+    local memory: accumulators indexed at run time land there."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            sym = m.group(1)
+            short = re.search(r"\d([a-z_]+?)(?:I\w*?Li(\d+)E|I\w+?E|E)", sym)
+            cur = (f"{short.group(1)}<{short.group(2)}>" if short and
+                   short.group(2) else short.group(1) if short else sym)
+            continue
+        if cur is None:
+            continue
+        info = out.setdefault(cur, {})
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            info["stack"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            info["spill_stores"], info["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            info["static_smem"] = int(m.group(1))
+    return out
+
+
+#: dynamic shared memory of the tensor-core kernels, bytes, as their
+#: launchers set it (csrc/fused_ce.cu tc::kSmemBytes; csrc/
+#: flash_attention.cu tc::fwd_smem / dq_smem / dkv_smem)
+TC_DYNAMIC_SMEM = {
+    "ce_fwd_tc": 147456, "ce_d_tc": 147456, "ce_dx_tc": 147456,
+    "ce_dk_tc": 147456 + 128 * (128 * 2 + 12) + 64,
+    **{f"flash_fwd_tc<{d}>": 5 * 64 * d * 2 + 512 for d in (64, 128)},
+    **{f"flash_bwd_dq_tc<{d}>": 6 * 64 * d * 2 + 512 for d in (64, 128)},
+    **{f"flash_bwd_dkv_tc<{d}>": 6 * 64 * d * 2 + 1536
+       for d in (64, 128)}}   # dK/dV: + 4 bytes per 32 (head, q tile)
+
+
 def phase_build():
     from fengshen_tpu_torch.ops.kernels import build, probe
     t0 = time.perf_counter()
     build.load()
     seconds = time.perf_counter() - t0
-    ptxas = [line.strip() for line in build.last_build_log.splitlines()
-             if "registers" in line or "spill" in line]
+    report = ptxas_report(build.last_build_log)
+    tensor_core = {name: dict(info, dynamic_smem=TC_DYNAMIC_SMEM.get(name))
+                   for name, info in report.items() if "_tc" in name}
+    others = {name: info for name, info in report.items()
+              if "_tc" not in name}
     say("build", seconds=round(seconds, 3), library=build.library_path().name,
-        ptxas=ptxas, probe=probe().describe())
+        ptxas_tensor_core=tensor_core, ptxas_other=others,
+        probe=probe().describe())
     return seconds
 
 
@@ -486,7 +558,8 @@ def flash_bounds(q, k, seg):
     multiply-adds over the valid (causal, same-segment) pairs over the
     bf16 tensor-core rate; the larger bounds it."""
     B, S, H, D = q.shape
-    pairs = int(flash_mask(q, k, seg).sum()) * H
+    pairs = (B * S * (S + 1) // 2 if seg is None else
+             int(flash_mask(q, k, seg).sum())) * H
     elt = q.element_size()
     qb, kvb = q.numel() * elt, 2 * k.numel() * elt
     rows = B * H * S * 4                           # lse or delta, fp32
@@ -688,7 +761,56 @@ def phase_flash_kernels():
         raise AssertionError("; ".join(failures))
     for name in K1_NAMES:
         rows[name]["max_abs_err"] = errs[name]
+    k1_long_context(gen)
     return rows
+
+
+def k1_long_context(gen):
+    """K1 at the long-context path's attention shape (B 1, S 32768, 32
+    heads of 128, causal, bf16): the three kernels' times against SDPA
+    with ``is_causal`` (forward; backward by autograd, dq, dk and dv in
+    one call) and the bound. No plain version at this size."""
+    import torch
+    import torch.nn.functional as F
+    from fengshen_tpu_torch.ops.kernels.flash_attention import (
+        attention_delta, cuda_flash_bwd_dkv, cuda_flash_bwd_dq,
+        cuda_flash_fwd)
+    B, S, H, D = K1_LONG_SHAPE
+    pairs = B * H * S * (S + 1) // 2
+    q, k, v, g = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+                  .bfloat16() for _ in range(4))
+    out, lse = cuda_flash_fwd(q, k, v, None, None, True)
+    delta = attention_delta(out, g)
+    ms = {"flash_attention_fwd": cuda_ms(
+              lambda: cuda_flash_fwd(q, k, v, None, None, True), 3),
+          "flash_attention_bwd_dkv": cuda_ms(
+              lambda: cuda_flash_bwd_dkv(q, k, v, out, g, lse, delta,
+                                         causal=True), 3),
+          "flash_attention_bwd_dq": cuda_ms(
+              lambda: cuda_flash_bwd_dq(q, k, v, out, g, lse, delta,
+                                        causal=True), 3)}
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, lse))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 3)
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), g.transpose(1, 2), retain_graph=True), 3)
+    bounds = flash_bounds(q, k, None)
+    say("kernel", name="flash_attention", case="long_context",
+        shape=list(q.shape), causal=True, variant="tensor_core",
+        times_ms=ms, sdpa_is_causal_fwd_ms=sdpa_fwd,
+        sdpa_is_causal_bwd_ms=sdpa_bwd,
+        bound_ms={n: b[0] for n, b in bounds.items()},
+        bound_by={n: b[1] for n, b in bounds.items()},
+        tflops={name: flops * D * pairs / ms[name] / 1e9
+                for name, flops in zip(K1_NAMES, (4, 8, 6))},
+        finite=finite)
+    del q, k, v, g, out, lse, delta, qt, kt, vt, o
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError("K1 at 32k: non-finite out or lse")
 
 
 # -- phase 4 ------------------------------------------------------------
@@ -820,8 +942,67 @@ def phase_main_path():
 
 # -- phase 5 ------------------------------------------------------------
 
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` is ``value`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+@contextlib.contextmanager
+def int8_pool_reads(split: int):
+    """Inside the block the model's cacheless dense attention reads K and
+    V as an int8 serving pool holds them: query rows from ``split`` on
+    (the generated tokens, which decode from the pool) attend to K and V
+    round-tripped through ``quantize_kv`` / ``dequantize_kv``; rows
+    before it (the bucket-padded prompt, which the engine prefills with
+    unquantized K/V before it quantizes them into the pool) to K and V
+    as computed."""
+    import torch
+    from fengshen_tpu_torch.models.llama import modeling_llama
+    from fengshen_tpu_torch.ops.int8_matmul import dequantize_kv, quantize_kv
+    dense = modeling_llama.dot_product_attention
+
+    def roundtrip(t):
+        return dequantize_kv(*quantize_kv(t), t.dtype)
+
+    def attention(q, k, v, **kw):
+        out = dense(q, k, v, **kw)
+        pool = dense(q, roundtrip(k), roundtrip(v), **kw)
+        return torch.cat([out[:, :split], pool[:, split:]], dim=1)
+
+    with patched(modeling_llama, "dot_product_attention", attention):
+        yield
+
+
+@contextlib.contextmanager
+def int8_scale_fault():
+    """Inside the block every int8 pool write (the slot and paged decode
+    writes and the paged prefill copy) stores KV head INT8_FAULT_HEAD's
+    scales halved: phase 3's planted K3-int8 fault, moved into the
+    served pool."""
+    from fengshen_tpu_torch.models.llama import modeling_llama
+    from fengshen_tpu_torch.serving import paged_cache
+    from fengshen_tpu_torch.ops.int8_matmul import quantize_kv
+
+    def faulty(x):
+        values, scale = quantize_kv(x)
+        scale = scale.clone()
+        scale[..., INT8_FAULT_HEAD] *= 0.5
+        return values, scale
+
+    with patched(modeling_llama, "quantize_kv", faulty), \
+            patched(paged_cache, "quantize_kv", faulty):
+        yield
+
+
 def phase_teacher_forced(model, prompts, runs, margin=TF_MARGIN,
-                         phase="teacher_forced"):
+                         phase="teacher_forced", int8_pool=False,
+                         check=True):
     """Re-score every served sequence with ONE cacheless forward (dense
     attention, same weights, same bucket padding and positions). Every
     served token must be that forward's argmax or within TF_MARGIN
@@ -831,7 +1012,10 @@ def phase_teacher_forced(model, prompts, runs, margin=TF_MARGIN,
     probabilities, GEMMs of a few hundred rows) round a bf16 residual
     stream differently over 40 layers, and random weights leave top-2
     gaps of a few tenths (the logits' spread is printed). A broken
-    kernel or cache picks tokens whole logits below the argmax."""
+    kernel or cache picks tokens whole logits below the argmax. With
+    ``int8_pool`` the re-scoring's attention reads K and V as an int8
+    pool holds them (:func:`int8_pool_reads`). Returns the worst gap;
+    raises when it passes ``margin``, unless ``check`` is False."""
     import torch
     from fengshen_tpu_torch.serving import BucketLadder
     ladder = BucketLadder()
@@ -845,8 +1029,10 @@ def phase_teacher_forced(model, prompts, runs, margin=TF_MARGIN,
                 m = torch.tensor(list(mask) + [1] * (len(tokens) - 1),
                                  device="cuda")
                 pos = (m.cumsum(0) - 1).clamp(min=0)
-                logits = model(ids[None], attention_mask=m[None],
-                               position_ids=pos[None])[0].float()
+                with (int8_pool_reads(bucket) if int8_pool
+                      else contextlib.nullcontext()):
+                    logits = model(ids[None], attention_mask=m[None],
+                                   position_ids=pos[None])[0].float()
                 pred = logits[bucket - 1:]
                 chosen = torch.tensor(tokens, device="cuda")
                 gap = pred.max(-1).values - pred.gather(
@@ -863,7 +1049,7 @@ def phase_teacher_forced(model, prompts, runs, margin=TF_MARGIN,
         worst_gap=worst, margin=margin,
         median_top2_gap=sorted(top2)[len(top2) // 2],
         logit_std=sum(spread) / len(spread))
-    if worst > margin:
+    if check and worst > margin:
         raise AssertionError(f"a served token is {worst} below the "
                              f"teacher-forced argmax (margin {margin})")
     return worst
@@ -944,12 +1130,38 @@ def int8_bar(model, prompts, ref_runs, int8_runs, phase):
                              f"position: {bad}")
 
 
+def int8_rescoring_bar(model, pipe, prompts, int8_runs, margin, phase):
+    """The int8-served sequences re-scored by one cacheless forward whose
+    attention reads K and V as the pool holds them: every served token
+    is that forward's argmax or within ``margin`` of it. Then the same
+    model served once more from a paged int8 pool with the halved-scale
+    fault planted in every pool write; the bar must reject those tokens
+    (their worst gap must pass ``margin``), or the phase fails."""
+    from fengshen_tpu_torch.ops.kernels import get_entry
+    sound = phase_teacher_forced(model, prompts, int8_runs, margin=margin,
+                                 phase=phase, int8_pool=True)
+    with int8_scale_fault():
+        faulty, _ = serve_run(pipe, "paged", prompts,
+                              get_entry("decode_attention"),
+                              kv_dtype="int8")
+    planted = phase_teacher_forced(model, prompts, {"paged": faulty},
+                                   margin=margin, phase=f"{phase}_planted",
+                                   int8_pool=True, check=False)
+    say(phase, sound_worst_gap=sound, planted_worst_gap=planted,
+        margin=margin, planted_rejected=planted > margin)
+    if planted <= margin:
+        raise AssertionError(f"{phase}: the planted halved-scale pool "
+                             f"passed the re-scoring bar (worst gap "
+                             f"{planted}, margin {margin})")
+
+
 def phase_int8_serving(model, pipe, prompts, runs):
     """The 40-layer bf16 model served again from int8 KV pools (paged,
     then slot) through the HTTP server and engine: K3's int8 branch on
     every layer of every tick (serve_run pins 40 launches per tick and
     prints tokens/s, TTFT, peak memory and the pool's bytes), its tokens
-    held to the bf16 pools' tokens by the margin-aware bar."""
+    held to the bf16 pools' tokens by the margin-aware bar, and to a
+    re-scoring that reads the pool's K and V (int8_rescoring_bar)."""
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     int8_runs, launches = {}, 0
@@ -958,6 +1170,8 @@ def phase_int8_serving(model, pipe, prompts, runs):
                                          kv_dtype="int8")
         launches += n
     int8_bar(model, prompts, runs, int8_runs, "int8_bar")
+    int8_rescoring_bar(model, pipe, prompts, int8_runs, TF_MARGIN,
+                       "int8_rescore")
     return launches
 
 
@@ -1044,6 +1258,8 @@ def phase_fp32_serving(prompts):
     served8, _ = serve_run(pipe, "paged", prompts, entry, kv_dtype="int8")
     int8_bar(model, prompts, {"paged": served}, {"paged": served8},
              "fp32_int8_bar")
+    int8_rescoring_bar(model, pipe, prompts, {"paged": served8},
+                       INT8_FP32_MARGIN, "fp32_int8_rescore")
     del model, pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -1149,6 +1365,7 @@ def phase_training(workdir: Path):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: get_entry(name).launches for name in K1_NAMES}
+    variants = {name: dict(get_entry(name).variants) for name in K1_NAMES}
     peak = torch.cuda.max_memory_allocated()
     steps = [e for e in trainer.history if "loss" in e]
     fit_start = trainer.history[0]
@@ -1172,6 +1389,9 @@ def phase_training(workdir: Path):
         raise AssertionError(f"training: K1 launches {launches}, want "
                              f"{want} (forward twice per layer and step: "
                              "the checkpoint recomputes it)")
+    if variants != {n: {"tensor_core": c} for n, c in want.items()}:
+        raise AssertionError(f"training: bf16 compute must launch only the "
+                             f"tensor-core K1, got {variants}")
 
     # step 1 again on fresh weights from the same seed and the same
     # batch with the plain attention (the dispatch's plain branch); then,
@@ -1238,7 +1458,7 @@ def phase_training(workdir: Path):
         mfu_bf16=(steps[-1]["flops_per_token"] * tokens * len(steady) /
                   sum(steady) / BF16_FLOPS),
         wall_s=wall, max_memory_allocated_gib=peak / 2**30,
-        launches=launches, plain_step1_loss=ref_loss,
+        launches=launches, variants=variants, plain_step1_loss=ref_loss,
         plain_step1_grad_norm=ref_norm, loss_rel_diff=loss_rel,
         grad_norm_rel_diff=norm_rel, loss_rtol=TRAIN_LOSS_RTOL,
         grad_norm_rtol=TRAIN_GRAD_NORM_RTOL,
@@ -1269,13 +1489,13 @@ def ce_bounds(n_tok, hid, vocab, elt):
     flops over the bf16 tensor-core rate; the larger bounds it. fwd: the
     scores (2 T V H). dx: the scores again and d K^T (4 T V H), from x,
     K, labels, lse and the two cotangents. dK: x^T d (2 T V H) from x and
-    the fp32 d that K2-dx leaves (this design's dK kernel does not
-    recompute the scores)."""
+    the d that K2-dx leaves in x's dtype (this design's dK kernel does
+    not recompute the scores)."""
     xb, wb, rows = n_tok * hid * elt, hid * vocab * elt, n_tok * 4
     pass_flops = 2.0 * n_tok * vocab * hid
     work = {"fwd": (xb + wb + rows + 3 * rows, pass_flops),
             "dx": (xb + wb + 4 * rows + xb, 2 * pass_flops),
-            "dk": (xb + n_tok * vocab * 4 + wb, pass_flops)}
+            "dk": (xb + n_tok * vocab * elt + wb, pass_flops)}
     out = {}
     for name, (moved, flops) in work.items():
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
@@ -1321,8 +1541,8 @@ def time_ce_backward(x, w, labels, lse, c_lse, c_gold):
     import torch
     from fengshen_tpu_torch.ops.kernels import fused_ce as k2
     n_tok = x.shape[0]
-    d = torch.empty(min(k2.BWD_CHUNK, n_tok), w.shape[1],
-                    dtype=torch.float32, device="cuda")
+    d = torch.empty(min(k2.BWD_CHUNK, n_tok), w.shape[1], dtype=x.dtype,
+                    device="cuda")
     total = torch.empty(w.shape, dtype=torch.float32, device="cuda")
     dx, dk = torch.empty_like(x), torch.empty_like(w)
     events = []
@@ -1333,7 +1553,7 @@ def time_ce_backward(x, w, labels, lse, c_lse, c_gold):
         k2.cuda_ce_bwd_dx(x[sl], w, labels[sl], lse[sl], c_lse[sl],
                           c_gold[sl], d, dx[sl])
         ev[1].record()
-        k2.cuda_ce_bwd_dk(x[sl], d, total,
+        k2.cuda_ce_bwd_dk(x[sl], d, labels[sl], c_gold[sl], total,
                           dk if sl.stop == n_tok else None, first=i == 0)
         ev[2].record()
         events.append(ev)
@@ -1755,14 +1975,16 @@ def grad_rel_named(got: dict, want: dict) -> dict:
 def planted_ce_faults():
     """Faults planted in K2's backward for the long-context step's check:
     name -> (wrapper, patch). ``dk_token_tile``: the first chunk's first
-    128 tokens left out of dK; ``dx_token_tile``: their dx zero."""
+    128 tokens left out of dK (their rows of x zero, so both parts of d
+    drop out); ``dx_token_tile``: their dx zero."""
     from fengshen_tpu_torch.ops.kernels import fused_ce as k2
     real_dx, real_dk = k2.cuda_ce_bwd_dx, k2.cuda_ce_bwd_dk
 
-    def dk_token_tile(x, d, total, dk=None, first=True):
+    def dk_token_tile(x, d, labels, c_gold, total, dk=None, first=True):
         if first:
-            d[:CE_TILE].zero_()
-        return real_dk(x, d, total, dk, first)
+            x = x.clone()
+            x[:CE_TILE].zero_()
+        return real_dk(x, d, labels, c_gold, total, dk, first)
 
     calls = []
 
@@ -1779,8 +2001,8 @@ def planted_ce_faults():
 
 #: kernel-name fragments -> the group a profiled kernel's time goes to
 PROFILE_GROUPS = (("K1 flash attention", ("flash_",)),
-                  ("K2 fused CE", ("ce_fwd_kernel", "ce_d_kernel",
-                                   "ce_dx_kernel", "ce_dk_kernel")),
+                  ("K2 fused CE", ("ce_fwd_", "ce_d_", "ce_dx_",
+                                   "ce_dk_")),
                   ("GEMMs", ("gemm", "nvjet", "cutlass", "sm90_xmma")))
 
 
@@ -1849,6 +2071,7 @@ def phase_long_context(workdir: Path):
         config, "cuda", root=str(workdir / "long_context"),
         steps=LONG_STEPS, batch=1)
     launches = {n: get_entry(n).launches for n in K1_NAMES + K2_NAMES}
+    variants = {n: dict(get_entry(n).variants) for n in K1_NAMES + K2_NAMES}
     peak = torch.cuda.max_memory_allocated()
     steps = [e for e in trainer.history if "loss" in e]
     n_params = trainer.history[0]["n_params"]
@@ -1870,6 +2093,9 @@ def phase_long_context(workdir: Path):
         failures.append(f"long context: losses {losses}")
     if launches != want:
         failures.append(f"long context: launches {launches}, want {want}")
+    if variants != {n: {"tensor_core": c} for n, c in want.items()}:
+        failures.append(f"long context: bf16 must launch only the "
+                        f"tensor-core K1 and K2, got {variants}")
 
     # step 1 again: same seed, same first batch
     rows = bench.long_context_rows(config.vocab_size, seq, LONG_STEPS + 1)
@@ -1921,6 +2147,7 @@ def phase_long_context(workdir: Path):
         mfu_bf16=steps[-1]["flops_per_token"] * tokens_per_s / BF16_FLOPS,
         flops_per_token=steps[-1]["flops_per_token"], wall_s=wall,
         max_memory_allocated_gib=peak / 2**30, launches=launches,
+        variants=variants,
         step1_fit_loss=losses[0] if losses else None, step1_k2_loss=k_loss,
         step1_plain_loss=p_loss, loss_rel_diff=loss_rel,
         loss_rtol=LONG_LOSS_RTOL, grad_rel_diff=rel,
@@ -2003,7 +2230,8 @@ def main() -> int:
             "replaces": e.replaces, "launches": k1_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "variant": "tensor_core"})
     for name in K2_NAMES:
         e, r = get_entry(name), k2_rows[name]
         kernels.append({
@@ -2011,7 +2239,8 @@ def main() -> int:
             "replaces": e.replaces, "launches": long_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "variant": "tensor_core"})
     for name in K4_NAMES:
         e, r = get_entry(name), k4_rows[name]
         kernels.append({

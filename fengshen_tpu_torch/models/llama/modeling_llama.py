@@ -25,10 +25,12 @@ dequantizes inside the read.
 
 The layers run as a plain loop over ``model.layers`` (the reference's
 ``scan_layers`` is only a parameter layout here). The cacheless forward
-takes ``attention_impl`` "dense", "flash" (kernel K1 through
+takes ``attention_impl`` "flash" (kernel K1 through
 ``ops/flash_attention.py``) or, on one device, "ring", "ulysses" and
 "sequence" (flash attention over repeated KV heads, as the reference
-falls back to it). With ``gradient_checkpointing`` every layer is
+falls back to it); every other value ("dense", "sparse", any other
+string) takes the dense masked path, as the reference's ``else`` branch
+does. With ``gradient_checkpointing`` every layer is
 recomputed in the backward (``torch.utils.checkpoint``) under the
 reference's remat policy "nothing", or "dots_no_batch", which keeps the
 projections' outputs (a selective checkpoint).
@@ -201,11 +203,6 @@ class LlamaAttention(nn.Module):
                                    dequant_dtype=dt)
         else:
             impl = cfg.attention_impl
-            if impl not in ("dense", "flash") + SEQUENCE_IMPLS:
-                raise NotImplementedError(
-                    f"attention_impl={impl!r} is not yet ported; the "
-                    "cacheless forward supports 'dense', 'flash', 'ring', "
-                    "'ulysses' and 'sequence'")
             if cfg.packed_sequences:
                 raise NotImplementedError(
                     "packed_sequences is not yet ported")

@@ -13,7 +13,10 @@ registers here with its plain PyTorch version:
 - :func:`log_dispatch` states the table once at startup.
 - Each :class:`KernelEntry` keeps ``launches``, a plain integer the
   wrapper adds one to where it launches its kernel and nowhere else, so
-  a run can show that its main path went through the kernel.
+  a run can show that its main path went through the kernel. A kernel
+  with more than one design (K1 and K2: ``"tensor_core"`` for bf16
+  inputs, ``"fp32_fma"`` for fp32) also counts its launches per design
+  in ``variants``.
 """
 
 from __future__ import annotations
@@ -89,6 +92,14 @@ class KernelEntry:
     #: ``impl="sparse"`` calls with a bias, mask, dropout or segment ids,
     #: or on CPU tensors, as the reference falls back)
     dense_calls: int = 0
+    #: launches per design of a kernel that has more than one
+    variants: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    def count(self, variant: Optional[str] = None) -> None:
+        """One launch (of the design ``variant``, when it has several)."""
+        self.launches += 1
+        if variant is not None:
+            self.variants[variant] = self.variants.get(variant, 0) + 1
 
 
 _REGISTRY: Dict[str, KernelEntry] = {}
@@ -121,6 +132,7 @@ def reset_launch_counts() -> None:
     for entry in _REGISTRY.values():
         entry.launches = 0
         entry.dense_calls = 0
+        entry.variants.clear()
 
 
 def log_dispatch(log: Optional[Callable[[dict], None]] = None,

@@ -168,7 +168,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, i32, ptr]               # T H V, dtype code, stream
     lib.fstpu_ce_bwd_dx.restype = i32
     lib.fstpu_ce_bwd_dk.argtypes = [
-        ptr, ptr, ptr, ptr,                    # x d sum dk
+        ptr, ptr, ptr, ptr, ptr, ptr,          # x d labels c_gold sum dk
         i32, i32, i32, i32, i32, ptr]          # first T H V, dtype, stream
     lib.fstpu_ce_bwd_dk.restype = i32
     for name in ("fstpu_bs_fwd", "fstpu_bs_bwd_dkv", "fstpu_bs_bwd_dq"):

@@ -14,7 +14,9 @@ backward kernels).
   :func:`cuda_flash_bwd_dq` are the kernels' wrappers: each checks
   device, dtype, shape and contiguity, allocates its outputs, launches on
   the current stream, raises ``KernelError`` on a non-zero launch code
-  and counts the launch.
+  and counts the launch, by design (:data:`VARIANT`: bf16 inputs run the
+  tensor-core kernels, fp32 the CUDA-core ones; one C entry point per
+  kernel picks by dtype).
 - :func:`torch_flash_forward` and :func:`torch_flash_backward` are the
   plain versions of the three kernels: ``plain_flash_attention`` (with
   its autograd for the gradients) and the log-sum-exp of its masked scores.
@@ -37,6 +39,9 @@ from fengshen_tpu_torch.ops.kernels import KernelError, register_kernel
 
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels' design per input dtype: bf16 on the tensor cores, fp32
+#: as fp32 FMAs on the CUDA cores
+VARIANT = {torch.float32: "fp32_fma", torch.bfloat16: "tensor_core"}
 #: the masking constant of the plain version and the TPU kernels; a row
 #: with no valid key has this log-sum-exp
 NEG_INF = -1e30
@@ -130,7 +135,7 @@ def cuda_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kv_heads, head_dim, int(causal), _DTYPE_CODE[q.dtype],
             ctypes.c_void_p(stream))
     _check_rc(lib, rc, "flash attention forward")
-    FWD.launches += 1
+    FWD.count(VARIANT[q.dtype])
     return out, lse
 
 
@@ -168,7 +173,7 @@ def cuda_flash_bwd_dkv(q, k, v, out, dout, lse, delta, q_seg=None,
             dv.data_ptr(), batch, q_len, k_len, n_heads, kv_heads, head_dim,
             int(causal), _DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
     _check_rc(lib, rc, "flash attention dK/dV")
-    DKV.launches += 1
+    DKV.count(VARIANT[q.dtype])
     return dk, dv
 
 
@@ -189,7 +194,7 @@ def cuda_flash_bwd_dq(q, k, v, out, dout, lse, delta, q_seg=None,
             q_len, k_len, n_heads, kv_heads, head_dim, int(causal),
             _DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
     _check_rc(lib, rc, "flash attention dQ")
-    DQ.launches += 1
+    DQ.count(VARIANT[q.dtype])
     return dq
 
 

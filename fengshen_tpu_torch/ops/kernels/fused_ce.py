@@ -17,15 +17,20 @@ kernels).
   its forward launches K2-fwd and saves x, the head, the labels and
   ``lse``; its backward walks the tokens in chunks of
   :data:`BWD_CHUNK`, and for each launches K2-dx (which recomputes the
-  chunk's ``d = c_lse * softmax + c_gold * onehot`` once into an fp32
-  workspace and forms ``dx = d K^T``) and K2-dK (``dK += x^T d``; the
-  last chunk writes it in K's dtype). ``amax`` has no gradient. So a
-  training step launches K2-fwd once, K2-dx and K2-dK
+  chunk's ``d = c_lse * softmax + c_gold * onehot`` once, in fp32, into
+  a workspace in x's dtype, and forms ``dx = d K^T``) and K2-dK (``dK
+  += x^T d`` in an fp32 sum; the last chunk writes it in K's dtype).
+  In bf16 the workspace feeds the tensor cores and holds only d's
+  softmax part; the kernels add the one-hot part in fp32 from the labels
+  and ``c_gold``. In fp32 it holds all of d. ``amax`` has no gradient.
+  So a training step launches K2-fwd once, K2-dx and K2-dK
   ``ceil(T / BWD_CHUNK)`` times each.
 - :func:`cuda_ce_fwd`, :func:`cuda_ce_bwd_dx` and :func:`cuda_ce_bwd_dk`
   wrap the kernels: each checks its operands, launches on the current
   stream, raises ``KernelError`` on a non-zero launch code and counts
-  the launch.
+  the launch, by design (:data:`VARIANT`: bf16 inputs run the
+  tensor-core kernels, fp32 the CUDA-core ones; one C entry point per
+  kernel picks by dtype).
 - :func:`torch_ce_token_stats`, :func:`torch_ce_bwd_dx` and
   :func:`torch_ce_bwd_dk` are the three kernels' plain versions, chunked
   over the tokens so the full logits never exist at once either.
@@ -46,8 +51,11 @@ from fengshen_tpu_torch.ops.kernels import (KernelError, kernel_choice,
                                             register_kernel)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: tokens per backward chunk: the fp32 workspace d is [BWD_CHUNK, V]
-#: (125 MiB at V = 32000)
+#: the kernels' design per input dtype: bf16 on the tensor cores, fp32
+#: as fp32 FMAs on the CUDA cores
+VARIANT = {torch.float32: "fp32_fma", torch.bfloat16: "tensor_core"}
+#: tokens per backward chunk: the workspace d is [BWD_CHUNK, V] in x's
+#: dtype (62.5 MiB in bf16 at V = 32000)
 BWD_CHUNK = 1024
 #: tokens per chunk of the plain versions
 PLAIN_CHUNK = 4096
@@ -117,25 +125,26 @@ def cuda_ce_fwd(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor):
                               amax.data_ptr(), n_tok, hid, w.shape[1],
                               _DTYPE_CODE[x.dtype], _stream(x))
     _check_rc(lib, rc, "fused CE forward")
-    FWD.launches += 1
+    FWD.count(VARIANT[x.dtype])
     return lse, gold, amax
 
 
 def cuda_ce_bwd_dx(x, w, labels, lse, c_lse, c_gold, d, dx=None):
     """Launch K2-dx on one chunk of tokens: the chunk's ``d`` into the
-    fp32 workspace ``d`` (at least ``[T_chunk, V]``; the first rows are
-    written), then ``dx = d K^T`` into ``dx`` (allocated when None).
+    workspace ``d`` (x's dtype, at least ``[T_chunk, V]``; the first rows
+    are written), then ``dx = d K^T`` into ``dx`` (allocated when None).
     Returns ``dx``."""
     check_eligible(x, w, labels)
     n_tok, hid = x.shape
     vocab = w.shape[1]
     for name, t in (("lse", lse), ("c_lse", c_lse), ("c_gold", c_gold)):
         _rows(name, t, n_tok, x.device)
-    if d.dtype != torch.float32 or d.dim() != 2 or d.shape[0] < n_tok or \
+    if d.dtype != x.dtype or d.dim() != 2 or d.shape[0] < n_tok or \
             d.shape[1] != vocab or not d.is_contiguous() or \
             d.device != x.device:
-        raise ValueError(f"fused CE kernel: the workspace must be fp32 "
-                         f"[>= {n_tok}, {vocab}], contiguous, on x's device")
+        raise ValueError(f"fused CE kernel: the workspace must be "
+                         f"{x.dtype} [>= {n_tok}, {vocab}], contiguous, on "
+                         "x's device")
     if dx is None:
         dx = torch.empty_like(x)
     elif dx.shape != x.shape or dx.dtype != x.dtype or \
@@ -148,16 +157,20 @@ def cuda_ce_bwd_dx(x, w, labels, lse, c_lse, c_gold, d, dx=None):
             c_lse.data_ptr(), c_gold.data_ptr(), d.data_ptr(), dx.data_ptr(),
             n_tok, hid, vocab, _DTYPE_CODE[x.dtype], _stream(x))
     _check_rc(lib, rc, "fused CE dx")
-    DX.launches += 1
+    DX.count(VARIANT[x.dtype])
     return dx
 
 
-def cuda_ce_bwd_dk(x, d, total, dk=None, first: bool = True):
+def cuda_ce_bwd_dk(x, d, labels, c_gold, total, dk=None,
+                   first: bool = True):
     """Launch K2-dK on one chunk of tokens: add ``x^T d`` to the fp32
     sum ``total [H, V]`` (which starts here when ``first``); with ``dk``
     given, write the finished sum there in its dtype instead (the last
     chunk; ``total`` may then be None if this is also the first).
-    Returns ``dk`` or ``total``."""
+    ``d`` is the chunk's workspace from K2-dx; ``labels`` (int32) and
+    ``c_gold`` (fp32) are the chunk's ``[T_chunk]``: the bf16 kernels
+    add d's one-hot part from them, as their workspace holds only its
+    softmax part. Returns ``dk`` or ``total``."""
     n_tok, hid = x.shape
     vocab = d.shape[1]
     if x.dtype not in _DTYPE_CODE or not x.is_contiguous() or \
@@ -167,7 +180,12 @@ def cuda_ce_bwd_dk(x, d, total, dk=None, first: bool = True):
     if total is None and not (first and dk is not None):
         raise ValueError("fused CE kernel: the fp32 sum is needed unless "
                          "one chunk writes dK directly")
-    for name, t, shape, dtype in (("d", d, None, torch.float32),
+    if labels.dtype != torch.int32 or tuple(labels.shape) != (n_tok,) or \
+            not labels.is_contiguous() or labels.device != x.device:
+        raise ValueError(f"fused CE kernel: labels must be int32 "
+                         f"[{n_tok}], contiguous, on x's device")
+    _rows("c_gold", c_gold, n_tok, x.device)
+    for name, t, shape, dtype in (("d", d, None, x.dtype),
                                   ("total", total, (hid, vocab),
                                    torch.float32),
                                   ("dk", dk, (hid, vocab), x.dtype)):
@@ -184,12 +202,13 @@ def cuda_ce_bwd_dk(x, d, total, dk=None, first: bool = True):
     lib = _library(x.device)
     with torch.cuda.device(x.device):
         rc = lib.fstpu_ce_bwd_dk(
-            x.data_ptr(), d.data_ptr(),
+            x.data_ptr(), d.data_ptr(), labels.data_ptr(),
+            c_gold.data_ptr(),
             None if total is None else total.data_ptr(),
             None if dk is None else dk.data_ptr(), int(first), n_tok, hid,
             vocab, _DTYPE_CODE[x.dtype], _stream(x))
     _check_rc(lib, rc, "fused CE dK")
-    DK.launches += 1
+    DK.count(VARIANT[x.dtype])
     return total if dk is None else dk
 
 
@@ -203,7 +222,7 @@ def kernel_ce_backward(x, w, labels, lse, c_lse, c_gold,
     c_gold = c_gold.float().contiguous()
     dx = torch.empty_like(x)
     dk = torch.empty_like(w)
-    d = torch.empty(min(chunk, n_tok), w.shape[1], dtype=torch.float32,
+    d = torch.empty(min(chunk, n_tok), w.shape[1], dtype=x.dtype,
                     device=x.device)
     starts = range(0, n_tok, chunk)
     # the fp32 sum across chunks; one chunk writes dK directly
@@ -214,7 +233,8 @@ def kernel_ce_backward(x, w, labels, lse, c_lse, c_gold,
         cuda_ce_bwd_dx(x[sl], w, labels[sl], lse[sl], c_lse[sl], c_gold[sl],
                        d, dx[sl])
         last = t0 + chunk >= n_tok
-        cuda_ce_bwd_dk(x[sl], d, total, dk if last else None, first=i == 0)
+        cuda_ce_bwd_dk(x[sl], d, labels[sl], c_gold[sl], total,
+                       dk if last else None, first=i == 0)
     return dx, dk
 
 

@@ -267,37 +267,44 @@ def _worst_ratio(got, want, rtol):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("seq,head_dim", [(100, 64), (256, 128)])
+@pytest.mark.parametrize("seq,head_dim", [(100, 64), (256, 128),
+                                          ((77, 200), 128)])
 def test_cuda_kernels_match_plain(cuda_device, name, dtype, seq, head_dim):
     """K1-fwd, K1-dkv and K1-dq against their plain versions on the card,
-    at a ragged length (100: tiles of 64 with an edge) and a tiled one.
+    at a ragged length (100: tiles of 64 with an edge), a tiled one, and
+    77 queries over 200 keys (``seq`` as ``(Sq, Sk)``: the queries are the
+    last 77 positions, right-aligned for the causal mask, with their
+    segment ids), ragged on both sides of the 64-row tiles.
     The plain versions run in fp32 on the same (dtype-rounded) inputs;
     the backward's take the kernels' own lse and delta. Each element
     within rtol x (|want| + rms of its head_dim row): fp32 1e-4 (sums
     in another order, fast exp), bf16 2^-7 (the outputs are rounded to
     bf16, at most 2^-8 relative). A kernel that skips a tile moves a
     row by tens of percent."""
-    causal, q, k, v, g, ids = _case(name, batch=3, seq=seq,
+    q_len, k_len = seq if isinstance(seq, tuple) else (seq, seq)
+    causal, q, k, v, g, ids = _case(name, batch=3, seq=k_len,
                                     head_dim=head_dim, seed=5)
-    args = [torch.from_numpy(x).to(cuda_device).to(dtype)
-            for x in (q, k, v, g)]
-    seg = None if ids is None else torch.from_numpy(ids).to(cuda_device)
+    q, g = q[:, k_len - q_len:], g[:, k_len - q_len:]
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+            .to(dtype) for x in (q, k, v, g)]
+    kv_seg = None if ids is None else torch.from_numpy(ids).to(cuda_device)
+    seg = None if ids is None else kv_seg[:, k_len - q_len:].contiguous()
     entries = [get_entry(n) for n in ("flash_attention_fwd",
                                       "flash_attention_bwd_dkv",
                                       "flash_attention_bwd_dq")]
     before = [e.launches for e in entries]
     tq, tk, tv = (a.clone().requires_grad_(True) for a in args[:3])
-    out = kernel_flash_attention(tq, tk, tv, seg, seg, causal)
+    out = kernel_flash_attention(tq, tk, tv, seg, kv_seg, causal)
     grads = torch.autograd.grad(out, (tq, tk, tv), args[3])
     torch.cuda.synchronize()
     assert [e.launches - b for e, b in zip(entries, before)] == [1, 1, 1]
     from fengshen_tpu_torch.ops.kernels.flash_attention import cuda_flash_fwd
-    _, lse = cuda_flash_fwd(*args[:3], seg, seg, causal)
+    _, lse = cuda_flash_fwd(*args[:3], seg, kv_seg, causal)
     f32 = [a.float() for a in args]
-    ref_out, ref_lse = torch_flash_forward(*f32[:3], seg, seg, causal)
+    ref_out, ref_lse = torch_flash_forward(*f32[:3], seg, kv_seg, causal)
     ref_grads = torch_flash_bwd(*f32, lse, attention_delta(out.detach(),
                                                             args[3]),
-                                seg, seg, causal)
+                                seg, kv_seg, causal)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
     rtol = 1e-4 if dtype == torch.float32 else 2 ** -7
     for got, want, what in zip([out, *grads], [ref_out, *ref_grads],

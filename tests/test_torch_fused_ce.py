@@ -282,7 +282,7 @@ def _gpu_case(n_tok, hid, vocab, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_tok,hid,vocab,chunk", [
     (1, 64, 1, 1024), (127, 200, 1000, 1024), (300, 128, 777, 64),
-    (513, 256, 4096, 128)])
+    (513, 256, 4096, 128), (257, 203, 1001, 128)])
 def test_cuda_kernels_match_plain(cuda_device, dtype, n_tok, hid, vocab,
                                   chunk):
     """K2-fwd, K2-dx and K2-dK against their plain versions run in fp32
@@ -291,7 +291,9 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, n_tok, hid, vocab,
     not divide T. lse and gold fp32: within 1e-4 of the row's scale (sums
     in another order); amax exact but for near-ties (top-2 gap < 1e-4);
     dx and dK element-wise within rtol x (|want| + rms of want's row):
-    fp32 1e-4, bf16 2^-7 (the outputs are rounded to bf16)."""
+    fp32 1e-4, bf16 2^-7 (the outputs are rounded to bf16). The last
+    shape has H and V that are not multiples of 8, so the bf16 kernels
+    stage every row of x, the head and d element by element."""
     x, w, labels = _gpu_case(n_tok, hid, vocab, dtype, cuda_device)
     before = [get_entry(n).launches for n in K2_NAMES]
     from fengshen_tpu_torch.ops.kernels.fused_ce import cuda_ce_fwd

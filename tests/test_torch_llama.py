@@ -151,6 +151,32 @@ def test_flash_impl_and_int8_head_not_ported(jax_logits):
         LlamaForCausalLM(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("impl", ["sparse", "no_such_impl"])
+def test_other_attention_impls_take_the_dense_path(jax_logits, impl):
+    """Every ``attention_impl`` other than flash and the
+    sequence-parallel ones goes to the dense masked attention, with the
+    KV heads repeated first, as the reference's ``else`` branch sends it:
+    the JAX model's logits for the same impl on the same weights, and
+    the port's dense logits exactly."""
+    params = jax_logits[False][0]
+    ids, mask, pos = _batch()
+    jcfg, cfg = _configs(attention_impl=impl)
+    ref = JaxLlama(jcfg).apply({"params": params}, jnp.asarray(ids),
+                               attention_mask=jnp.asarray(mask),
+                               position_ids=jnp.asarray(pos))
+    inputs = [torch.from_numpy(a).long() for a in (ids, mask)]
+    logits = {}
+    for name, c in ((impl, cfg), ("dense", _configs()[1])):
+        model = LlamaForCausalLM(c, device="cpu")
+        model.load_state_dict(params_from_jax(params, c))
+        with torch.no_grad():
+            logits[name] = model(*inputs,
+                                 position_ids=torch.from_numpy(pos).long())
+    np.testing.assert_allclose(logits[impl].numpy(), np.asarray(ref), **TOL)
+    torch.testing.assert_close(logits[impl], logits["dense"], rtol=0,
+                               atol=0)
+
+
 def test_gradient_checkpointing_matches_plain_backward():
     """Per-layer recompute under remat policy "nothing" and under
     "dots_no_batch" (projection outputs kept, the rest recomputed) gives
