@@ -7,15 +7,21 @@ Phases (each raises on failure, so any failure exits non-zero):
 
 1. device: torch, CUDA and the card's name and power limit;
 2. build: the kernel library from ``fengshen_tpu_torch/csrc``, with
-   ptxas's registers, spills and shared memory per tensor-core kernel;
+   each source's compile time and ptxas's registers, spills and shared
+   memory per kernel (a redesigned kernel with a stack frame or spills
+   fails the run);
 3. kernels: each kernel against its plain PyTorch version at the shapes
-   the main paths give it, with its time, the plain version's, one
-   PyTorch library call's (``library_ms``, a yardstick the port never
-   calls) and the bound (the least time the card could take): K3 (paged
-   decode attention) over bf16 pools and over int8 pools with fp32
-   scales (a planted scale fault must be rejected), then K1 (flash
-   attention: forward, dK/dV, dQ), and K1 timed at the long-context
-   attention shape (B 1, S 32768, 32 heads of 128) beside SDPA;
+   the main paths give it, with its time (the SM clock and power draw
+   read before and after), the plain version's, one PyTorch library
+   call's (``library_ms``, a yardstick the port never calls) and the
+   bound (the least time the card could take): K3 (split-K paged decode
+   attention; its split count printed) over bf16 pools (held to the fp32
+   plain version too; a planted dropped split must be rejected) and over
+   int8 pools with fp32 scales dequantized through bf16 and fp32 (a
+   planted scale fault must be rejected), each bitwise equal over two
+   calls, then K1 (flash attention: forward, dK/dV, dQ), and K1 timed at
+   the long-context attention shape (B 1, S 32768, 32 heads of 128)
+   beside SDPA;
 4. serving path: Ziya-LLaMA-13B at full width and depth (bf16 weights
    made on the card from a seed) served through the stdlib HTTP server
    and the continuous-batching engine, first over a paged KV pool, then
@@ -33,7 +39,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    read just after;
 6. profile: a few decode ticks under ``torch.profiler``, over a bf16
    and over an int8 paged pool (device busy and idle share per tick,
-   the kernels that take the time);
+   K3's time and share of it, the kernels that take the time);
 7. fp32 serving bar: a 4-layer model at Ziya width in fp32 (fp32 KV
    pools through K3), its greedy tokens held to the cacheless dense
    forward within a margin derived from fp32 rounding; then served once
@@ -60,8 +66,9 @@ H = 4096, V = 32000, bf16), with planted faults, and drives the
 block-sparse path: ``dot_product_attention(impl="sparse")`` forward and
 backward by autograd at Ziya's attention width (S = 8192, 40 heads,
 head_dim 128, bf16, a BigBird layout of 128-token blocks) through K4
-(forward, dK/dV, dQ), counts set to 0 just before and read just after,
-then each K4 kernel against its plain version, with planted faults.
+(forward, dK/dV, dQ; the tensor-core variant), counts set to 0 just
+before and read just after, the path's forward + backward timed, then
+each K4 kernel against its plain version, with planted faults.
 
 It prints one line per phase, then a ``{"kernels": [...]}`` JSON line,
 then as its last line ``{"ok": true, "device": {...}}``. Without a card,
@@ -242,6 +249,28 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call of ``fn`` captured once in a CUDA graph
+    and replayed (CUDA events): the device's time without the host's
+    per-call work (the wrapper's checks and allocations), which for a
+    kernel of tens of microseconds is as long as the kernel itself.
+    Two eager warm-up calls come first, one of them on a side stream as
+    capture wants."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, iters)
+    del graph
+    return ms
+
+
 # -- phase 1 ------------------------------------------------------------
 
 def phase_device():
@@ -261,20 +290,45 @@ def phase_device():
 
 # -- phase 2 ------------------------------------------------------------
 
+def kernel_label(sym: str) -> str:
+    """A mangled kernel symbol as its name and template arguments, e.g.
+    ``decode_split_kernel<bf16,128,0,1>`` or ``bs_fwd_tc<128>``."""
+    short = re.search(r"\d([a-z_]+?)(?:I|E)", sym)
+    if not short:
+        return sym
+    rest = sym[short.end() - 1:]
+    if not rest.startswith("I"):
+        return short.group(1)
+    args, i = [], 1
+    while i < len(rest) and rest[i] != "E":
+        m = re.match(r"Li(-?\d+)E", rest[i:])
+        if m:
+            args.append(m.group(1))
+            i += m.end()
+            continue
+        m = re.match(r"(\d+)", rest[i:])
+        if m:
+            n, j = int(m.group(1)), i + m.end()
+            args.append("bf16" if rest[j:j + n] == "__nv_bfloat16"
+                        else rest[j:j + n])
+            i = j + n
+            continue
+        args.append({"f": "float", "i": "int"}.get(rest[i], rest[i]))
+        i += 1
+    return f"{short.group(1)}<{','.join(args)}>"
+
+
 def ptxas_report(log: str) -> dict:
     """``nvcc -Xptxas -v`` per kernel: registers, stack frame and spill
-    bytes and static shared memory, keyed by the kernel's name (and
-    head_dim) as it appears in the mangled symbol. A stack frame means
-    local memory: accumulators indexed at run time land there."""
+    bytes and static shared memory, keyed by :func:`kernel_label`. A
+    stack frame means local memory: accumulators indexed at run time
+    land there."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            sym = m.group(1)
-            short = re.search(r"\d([a-z_]+?)(?:I\w*?Li(\d+)E|I\w+?E|E)", sym)
-            cur = (f"{short.group(1)}<{short.group(2)}>" if short and
-                   short.group(2) else short.group(1) if short else sym)
+            cur = kernel_label(m.group(1))
             continue
         if cur is None:
             continue
@@ -304,7 +358,15 @@ TC_DYNAMIC_SMEM = {
     **{f"flash_fwd_tc<{d}>": 5 * 64 * d * 2 + 512 for d in (64, 128)},
     **{f"flash_bwd_dq_tc<{d}>": 6 * 64 * d * 2 + 512 for d in (64, 128)},
     **{f"flash_bwd_dkv_tc<{d}>": 6 * 64 * d * 2 + 1536
-       for d in (64, 128)}}   # dK/dV: + 4 bytes per 32 (head, q tile)
+       for d in (64, 128)},   # dK/dV: + 4 bytes per 32 (head, q tile)
+    # csrc/block_sparse_attention.cu tc::fwd_smem / dq_smem / dkv_smem
+    **{f"bs_fwd_tc<{d}>": 5 * 64 * d * 2 for d in (64, 128)},
+    **{f"bs_bwd_dq_tc<{d}>": 6 * 64 * d * 2 + 512 for d in (64, 128)},
+    **{f"bs_bwd_dkv_tc<{d}>": 6 * 64 * d * 2 + 1024 for d in (64, 128)}}
+#: the kernels this slice redesigned: none may keep a stack frame or
+#: spill (ptxas, phase 2)
+NO_STACK_KERNELS = ("decode_split_kernel", "bs_fwd_tc", "bs_bwd_dq_tc",
+                    "bs_bwd_dkv_tc")
 
 
 def phase_build():
@@ -317,10 +379,33 @@ def phase_build():
                    for name, info in report.items() if "_tc" in name}
     others = {name: info for name, info in report.items()
               if "_tc" not in name}
+    checked = {name: info for name, info in report.items()
+               if name.split("<")[0] in NO_STACK_KERNELS}
     say("build", seconds=round(seconds, 3), library=build.library_path().name,
+        source_seconds={n: round(t, 1)
+                        for n, t in build.last_build_seconds.items()},
         ptxas_tensor_core=tensor_core, ptxas_other=others,
         probe=probe().describe())
+    bad = {name: info for name, info in checked.items()
+           if info.get("stack", 0) or info.get("spill_stores", 0) or
+           info.get("spill_loads", 0)}
+    if len(checked) < 2 * len(NO_STACK_KERNELS) or bad:
+        raise AssertionError(f"ptxas: {len(checked)} redesigned kernels "
+                             f"reported; with a stack frame or spills: {bad}")
     return seconds
+
+
+def clocks() -> dict:
+    """The card's SM clock, its maximum and its power draw now, as
+    ``nvidia-smi`` reads them (printed beside each phase-3 timing)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    if not out:
+        return {"nvidia_smi": "gave nothing"}
+    sm, sm_max, power = (x.strip() for x in out[0].split(","))
+    return {"sm": sm, "max_sm": sm_max, "power": power}
 
 
 # -- phase 3 ------------------------------------------------------------
@@ -379,27 +464,79 @@ def decode_bound(q, k, valid, table, scale_bytes=0):
         "operations", moved
 
 
+def k3_splits(q, k, valid):
+    """K3's split plan for this call: (splits, tiles per split)."""
+    import torch
+    from fengshen_tpu_torch.ops.kernels import decode_attention as k3
+    return k3.split_plan(valid.shape[-1], q.shape[0] * k.shape[2],
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+
+
+def k3_dropped_split(valid, plan):
+    """``valid`` with the positions of lane 0's first split that holds a
+    valid position masked out: what a combine that lost that split's
+    partial would compute."""
+    span = plan[1] * 64
+    bad = valid.clone()
+    for start in range(0, valid.shape[-1], span):
+        if bad[0, :, start:start + span].any():
+            bad[0, :, start:start + span] = False
+            return bad
+    raise AssertionError("K3: lane 0 has no valid position")
+
+
 def phase_kernels():
+    """K3 over bf16 pools at decode_case's shapes (slot and paged, S 1 and
+    5): the kernel against the plain version on the same bf16 inputs
+    (within KERNEL_ATOL) and against the plain version run in fp32 on
+    them (k1_reading's element limit, K1_L2_TOL relative L2); two calls
+    bitwise equal; a planted fault, the kernel run with one split's
+    worth of lane 0's positions masked out (a combine that drops a
+    split), must fail the reading. Times of the kernel (replayed from a
+    CUDA graph, and called eagerly), the plain version and SDPA over the
+    gathered lanes, with the SM clock and power draw read before and
+    after the kernel's timing."""
     import torch
     import torch.nn.functional as F
     from fengshen_tpu_torch.ops.kernels.decode_attention import (
         cuda_decode_attention, torch_decode_attention)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows = {}
+    rows, failures = {}, []
     for layout in ("slot", "paged"):
         for s in (1, 5):
             q, k, v, valid, table = decode_case(layout, s, gen)
+            plan = k3_splits(q, k, valid)
             out = cuda_decode_attention(q, k, v, valid, block_table=table)
+            again = cuda_decode_attention(q, k, v, valid, block_table=table)
             torch.cuda.synchronize()
             ref = torch_decode_attention(q, k, v, valid, block_table=table)
-            if not torch.isfinite(out.float()).all():
-                raise AssertionError(f"{layout} S={s}: non-finite output")
+            ref32 = torch_decode_attention(q.float(), k.float(), v.float(),
+                                           valid, block_table=table)
             err = (out.float() - ref.float()).abs().max().item()
             parked_err = (out[7].float() - ref[7].float()).abs().max().item()
-            if err > KERNEL_ATOL:
-                raise AssertionError(f"{layout} S={s}: max abs err {err} "
-                                     f"> {KERNEL_ATOL}")
-            ms = cuda_ms(lambda: cuda_decode_attention(
+            reading = k1_reading(out, ref32)
+            reading["rel_l2"] = ((out.float() - ref32).norm() /
+                                 ref32.norm()).item()
+            planted = k1_reading(cuda_decode_attention(
+                q, k, v, k3_dropped_split(valid, plan), block_table=table),
+                ref32)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(out, again)
+            if not torch.isfinite(out.float()).all() or err > KERNEL_ATOL \
+                    or reading["worst"] > 1.0 or \
+                    reading["rel_l2"] > K1_L2_TOL or not bitwise:
+                failures.append(f"K3 {layout} S={s}: max abs err {err} "
+                                f"(limit {KERNEL_ATOL}), {reading}, "
+                                f"bitwise repeat {bitwise}")
+            if planted["worst"] <= 1.0:
+                failures.append(f"K3 {layout} S={s}: the planted dropped "
+                                f"split passed: {planted}")
+            clocks_before = clocks()
+            ms = graph_ms(lambda: cuda_decode_attention(
+                q, k, v, valid, block_table=table), 50)
+            clocks_after = clocks()
+            eager_ms = cuda_ms(lambda: cuda_decode_attention(
                 q, k, v, valid, block_table=table), 50)
             plain_ms = cuda_ms(lambda: torch_decode_attention(
                 q, k, v, valid, block_table=table), 5)
@@ -418,15 +555,24 @@ def phase_kernels():
             bound_ms, bound_by, moved = decode_bound(q, k, valid, table)
             rows[(layout, s)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                splits=plan[0])
             say("kernel", name="decode_attention", layout=layout, S=s,
-                shape=list(q.shape), pool=list(k.shape), max_abs_err=err,
+                shape=list(q.shape), pool=list(k.shape), splits=plan[0],
+                tiles_per_split=plan[1], max_abs_err=err,
                 parked_lane_err=parked_err, tolerance=KERNEL_ATOL,
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                fp32_reading=reading, rtol=K1_RTOL, l2_tol=K1_L2_TOL,
+                planted_dropped_split=planted, bitwise_repeat=bitwise,
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bytes_moved=moved,
-                fraction_of_bound=bound_ms / ms)
-            del q, k, v, valid, table, out, ref, kg, vg, qt, kt, vt
+                fraction_of_bound=bound_ms / ms, clocks_before=clocks_before,
+                clocks_after=clocks_after)
+            del q, k, v, valid, table, out, again, ref, ref32, kg, vg
+            del qt, kt, vt
     torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
     return rows
 
 
@@ -446,13 +592,15 @@ def phase_int8_kernels():
     """K3's int8 branch at decode_case's shapes (8 lanes of 2048, 40
     heads, head_dim 128, bf16 queries, slot and paged, S 1 and 5) over
     int8 pools with random fp32 scales, dequantized through bf16 (the
-    serving path's compute dtype). Held to the plain version run in fp32
-    on the same K/V, dequantized and rounded to bf16 as the kernel does
-    (element limit of k1_reading, relative L2 under K1_L2_TOL); a
-    planted fault, one KV head's scales halved in the kernel's input
-    only, must be rejected. Times: the kernel, the registered plain
-    version on the same inputs, and SDPA over the dequantized, gathered
-    lanes (the dequantization not timed)."""
+    serving path's compute dtype) and through fp32. Held to the plain
+    version run in fp32 on the same K/V, dequantized and rounded as the
+    kernel does (element limit of k1_reading, relative L2 under
+    K1_L2_TOL); two calls bitwise equal; a planted fault, one KV head's
+    scales halved in the kernel's input only, must be rejected. Times:
+    the kernel replayed from a CUDA graph (with the SM clock and power
+    draw before and after) and called eagerly, the
+    registered plain version on the same inputs, and SDPA over the
+    dequantized, gathered lanes (the dequantization not timed)."""
     import torch
     import torch.nn.functional as F
     from fengshen_tpu_torch.ops.int8_matmul import dequantize_kv
@@ -460,62 +608,81 @@ def phase_int8_kernels():
         cuda_decode_attention, torch_decode_attention)
     gen = torch.Generator(device="cuda").manual_seed(6)
     rows, failures = {}, []
-    for layout in ("slot", "paged"):
-        for s in (1, 5):
-            q, kb, _, valid, table = decode_case(layout, s, gen)
-            k, ks = int8_pool(kb.shape, gen)
-            v, vs = int8_pool(kb.shape, gen)
-            del kb
-            kw = dict(k_scale=ks, v_scale=vs, block_table=table,
-                      dequant_dtype=torch.bfloat16)
-            out = cuda_decode_attention(q, k, v, valid, **kw)
-            torch.cuda.synchronize()
-            kd = dequantize_kv(k, ks, torch.bfloat16)
-            vd = dequantize_kv(v, vs, torch.bfloat16)
-            ref = torch_decode_attention(q.float(), kd.float(), vd.float(),
-                                         valid, block_table=table)
-            reading = k1_reading(out, ref)
-            reading["rel_l2"] = ((out.float() - ref).norm() /
-                                 ref.norm()).item()
-            if not torch.isfinite(out.float()).all() or \
-                    reading["worst"] > 1.0 or reading["rel_l2"] > K1_L2_TOL:
-                failures.append(f"K3 int8 {layout} S={s}: {reading}")
-            bad = dict(kw, k_scale=ks.clone(), v_scale=vs.clone())
-            bad["k_scale"][..., INT8_FAULT_HEAD] *= 0.5
-            bad["v_scale"][..., INT8_FAULT_HEAD] *= 0.5
-            planted = k1_reading(cuda_decode_attention(q, k, v, valid, **bad),
-                                 ref)
-            torch.cuda.synchronize()
-            if planted["worst"] <= 1.0:
-                failures.append(f"K3 int8 {layout} S={s}: the planted "
-                                f"scale fault passed: {planted}")
-            ms = cuda_ms(lambda: cuda_decode_attention(q, k, v, valid, **kw),
-                         50)
-            plain_ms = cuda_ms(lambda: torch_decode_attention(
-                q, k, v, valid, **kw), 5)
-            if table is None:
-                kg, vg = kd, vd
-            else:
-                idx = (table.long()[:, :, None] * k.shape[1] +
-                       torch.arange(k.shape[1], device="cuda")).flatten(1)
-                kg, vg = kd.flatten(0, 1)[idx], vd.flatten(0, 1)[idx]
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, kg, vg))
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=valid[:, None]), 20)
-            bound_ms, bound_by, moved = decode_bound(q, k, valid, table,
-                                                     scale_bytes=4)
-            rows[(layout, s)] = dict(
-                max_abs_err=reading["max_abs_err"], ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-            say("kernel", name="decode_attention_int8", layout=layout, S=s,
-                shape=list(q.shape), pool=list(k.shape), pool_dtype="int8",
-                dequant_dtype="bfloat16", rtol=K1_RTOL, l2_tol=K1_L2_TOL,
-                **reading, planted_scale_fault=planted, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bytes_moved=moved,
-                fraction_of_bound=bound_ms / ms)
-            del q, k, v, ks, vs, kd, vd, valid, table, out, ref, kg, vg
-            del qt, kt, vt, kw, bad
+    for dequant in (torch.bfloat16, torch.float32):
+        dq_name = str(dequant).split(".")[-1]
+        for layout in ("slot", "paged"):
+            for s in (1, 5):
+                q, kb, _, valid, table = decode_case(layout, s, gen)
+                k, ks = int8_pool(kb.shape, gen)
+                v, vs = int8_pool(kb.shape, gen)
+                del kb
+                plan = k3_splits(q, k, valid)
+                kw = dict(k_scale=ks, v_scale=vs, block_table=table,
+                          dequant_dtype=dequant)
+                out = cuda_decode_attention(q, k, v, valid, **kw)
+                again = cuda_decode_attention(q, k, v, valid, **kw)
+                torch.cuda.synchronize()
+                kd = dequantize_kv(k, ks, dequant)
+                vd = dequantize_kv(v, vs, dequant)
+                ref = torch_decode_attention(q.float(), kd.float(),
+                                             vd.float(), valid,
+                                             block_table=table)
+                reading = k1_reading(out, ref)
+                reading["rel_l2"] = ((out.float() - ref).norm() /
+                                     ref.norm()).item()
+                bitwise = torch.equal(out, again)
+                if not torch.isfinite(out.float()).all() or \
+                        reading["worst"] > 1.0 or \
+                        reading["rel_l2"] > K1_L2_TOL or not bitwise:
+                    failures.append(f"K3 int8 {dq_name} {layout} S={s}: "
+                                    f"{reading}, bitwise repeat {bitwise}")
+                bad = dict(kw, k_scale=ks.clone(), v_scale=vs.clone())
+                bad["k_scale"][..., INT8_FAULT_HEAD] *= 0.5
+                bad["v_scale"][..., INT8_FAULT_HEAD] *= 0.5
+                planted = k1_reading(
+                    cuda_decode_attention(q, k, v, valid, **bad), ref)
+                torch.cuda.synchronize()
+                if planted["worst"] <= 1.0:
+                    failures.append(f"K3 int8 {dq_name} {layout} S={s}: the "
+                                    f"planted scale fault passed: {planted}")
+                clocks_before = clocks()
+                ms = graph_ms(lambda: cuda_decode_attention(
+                    q, k, v, valid, **kw), 50)
+                clocks_after = clocks()
+                eager_ms = cuda_ms(lambda: cuda_decode_attention(
+                    q, k, v, valid, **kw), 50)
+                plain_ms = cuda_ms(lambda: torch_decode_attention(
+                    q, k, v, valid, **kw), 5)
+                if table is None:
+                    kg, vg = kd, vd
+                else:
+                    idx = (table.long()[:, :, None] * k.shape[1] +
+                           torch.arange(k.shape[1], device="cuda")
+                           ).flatten(1)
+                    kg, vg = kd.flatten(0, 1)[idx], vd.flatten(0, 1)[idx]
+                qt, kt, vt = (x.transpose(1, 2).to(q.dtype)
+                              for x in (q, kg, vg))
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=valid[:, None]), 20)
+                bound_ms, bound_by, moved = decode_bound(q, k, valid, table,
+                                                         scale_bytes=4)
+                rows[(dq_name, layout, s)] = dict(
+                    max_abs_err=reading["max_abs_err"], ms=ms,
+                    plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, splits=plan[0])
+                say("kernel", name="decode_attention_int8", layout=layout,
+                    S=s, shape=list(q.shape), pool=list(k.shape),
+                    pool_dtype="int8", dequant_dtype=dq_name,
+                    splits=plan[0], tiles_per_split=plan[1], rtol=K1_RTOL,
+                    l2_tol=K1_L2_TOL, **reading, bitwise_repeat=bitwise,
+                    planted_scale_fault=planted, ms=ms, eager_ms=eager_ms,
+                    plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, bytes_moved=moved,
+                    fraction_of_bound=bound_ms / ms,
+                    clocks_before=clocks_before, clocks_after=clocks_after)
+                del q, k, v, ks, vs, kd, vd, valid, table, out, again, ref
+                del kg, vg, qt, kt, vt, kw, bad
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("; ".join(failures))
@@ -1208,11 +1375,15 @@ def phase_profile(pipe, prompts, ticks: int = 8, kv_dtype: str = "fp32"):
             kernels[ev.name] = kernels.get(ev.name, 0) + \
                 ev.time_range.elapsed_us()
     busy_ms = sum(kernels.values()) / 1e3
+    k3_ms = sum(us for name, us in kernels.items()
+                if "decode_split_kernel" in name) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     say("profile", layout="paged", kv_dtype=kv_dtype, lanes=8, ticks=ticks,
         wall_ms_per_tick=wall * 1e3 / ticks,
         device_busy_ms_per_tick=(busy_ms / ticks if kernels else
                                  "not measured: no device events"),
+        k3_ms_per_tick=(k3_ms / ticks if kernels else "not measured"),
+        k3_share_of_busy=(k3_ms / busy_ms if kernels else "not measured"),
         device_idle_share=(1 - busy_ms / (wall * 1e3) if kernels else
                            "not measured"),
         device_kernels_per_tick=sum(1 for ev in prof.events() if
@@ -1794,8 +1965,10 @@ def phase_block_sparse():
     unread key block is checked the same way. Planted faults must be
     rejected: one present block dropped from the forward's block list,
     and one query block's contribution dropped from dK/dV. Times of the
-    kernels, the plain versions on the kernels' bf16 inputs, and SDPA
-    with the layout expanded into a boolean mask (forward, and its
+    kernels (on the layout's block lists built once, as the path does,
+    and with each call building them anew), of the path's forward and
+    backward, of the plain versions on the kernels' bf16 inputs, and of
+    SDPA with the layout expanded into a boolean mask (forward, and its
     backward by autograd)."""
     import numpy as np
     import torch
@@ -1823,10 +1996,13 @@ def phase_block_sparse():
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     launches = {n: get_entry(n).launches for n in K4_NAMES}
+    variants = {n: dict(get_entry(n).variants) for n in K4_NAMES}
     dense_calls = get_entry(K4_NAMES[0]).dense_calls
-    if launches != {n: 1 for n in K4_NAMES} or dense_calls != 0:
-        failures.append(f"K4 path: launches {launches}, dense calls "
-                        f"{dense_calls}; want 1 each and 0")
+    if launches != {n: 1 for n in K4_NAMES} or dense_calls != 0 or \
+            variants != {n: {"tensor_core": 1} for n in K4_NAMES}:
+        failures.append(f"K4 path: launches {launches}, variants "
+                        f"{variants}, dense calls {dense_calls}; want one "
+                        "tensor-core launch each and 0")
 
     # the kernels against their plain versions
     k_out, lse, delta, dq, dk, dv = bs_kernels(q, k, v, g, layout, BS_BLOCK)
@@ -1869,14 +2045,17 @@ def phase_block_sparse():
             failures.append(f"K4 planted {key}: the check gave {reading}")
     report["planted"] = planted
 
-    # times
+    # times: the kernels on the layout's block lists built once, as the
+    # path builds them once per forward; and each call building them
+    # anew (host work and small copies inside the timed window)
+    csr = k4.block_csr(layout, q.device)
     kernels = {
-        "block_sparse_attention_fwd": lambda: k4.cuda_bs_fwd(
-            q, k, v, layout, BS_BLOCK),
-        "block_sparse_attention_bwd_dkv": lambda: k4.cuda_bs_bwd_dkv(
-            q, k, v, g, lse, delta, layout, BS_BLOCK),
-        "block_sparse_attention_bwd_dq": lambda: k4.cuda_bs_bwd_dq(
-            q, k, v, g, lse, delta, layout, BS_BLOCK)}
+        "block_sparse_attention_fwd": lambda c=csr: k4.cuda_bs_fwd(
+            q, k, v, layout, BS_BLOCK, c),
+        "block_sparse_attention_bwd_dkv": lambda c=csr: k4.cuda_bs_bwd_dkv(
+            q, k, v, g, lse, delta, layout, BS_BLOCK, c),
+        "block_sparse_attention_bwd_dq": lambda c=csr: k4.cuda_bs_bwd_dq(
+            q, k, v, g, lse, delta, layout, BS_BLOCK, c)}
     plains = {
         "block_sparse_attention_fwd": lambda: k4.torch_bs_fwd(
             q, k, v, layout, BS_BLOCK),
@@ -1884,7 +2063,21 @@ def phase_block_sparse():
             q, k, v, g, lse, delta, layout, BS_BLOCK),
         "block_sparse_attention_bwd_dq": lambda: k4.torch_bs_bwd(
             q, k, v, g, lse, delta, layout, BS_BLOCK)}
-    ms = {n: cuda_ms(fn, 5) for n, fn in kernels.items()}
+    clocks_before = clocks()
+    ms = {n: cuda_ms(fn, 20) for n, fn in kernels.items()}
+    clocks_after = clocks()
+    lists_per_call_ms = {n: cuda_ms(lambda f=fn: f(None), 20)
+                         for n, fn in kernels.items()}
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def path():
+        o = dot_product_attention(qg, kg, vg, impl="sparse",
+                                  sparse_layout=layout,
+                                  sparse_block_size=BS_BLOCK)
+        return torch.autograd.grad(o, (qg, kg, vg), g)
+
+    path_ms = cuda_ms(path, 5)
+    del qg, kg, vg
     plain_ms = {n: cuda_ms(fn, 2) for n, fn in plains.items()}
     mask = torch.from_numpy(np.kron(layout, np.ones(
         (BS_BLOCK, BS_BLOCK), dtype=bool))).cuda()[None, None]
@@ -1910,20 +2103,23 @@ def phase_block_sparse():
         rows[name] = dict(ms=ms[name], plain_ms=plain_ms[name],
                           library_ms=lib, bound_ms=bounds[key][0],
                           bound_by=bounds[key][1], max_abs_err=max(errs),
-                          launches=launches[name])
+                          launches=launches[name], variants=variants[name])
     say("kernel", name="block_sparse_attention", batch=1, seq=BS_SEQ,
         heads=BS_HEADS, head_dim=BS_DIM, block=BS_BLOCK, dtype="bfloat16",
         layout=f"bigbird random={BS_RANDOM} global={BS_GLOBAL} "
         f"window={BS_WINDOW} seed=0", blocks_present=int(layout.sum()),
         blocks_total=int(layout.size), path_launches=launches,
-        path_dense_calls=dense_calls, path_s=path_s,
+        path_variants=variants, path_dense_calls=dense_calls,
+        path_first_call_s=path_s, path_fwd_bwd_ms=path_ms,
         path_equals_kernels=same, rtol=K1_RTOL, l2_tol=K1_L2_TOL, **report,
-        times_ms=ms, plain_ms=plain_ms, library_fwd_ms=lib_fwd,
+        times_ms=ms, lists_built_per_call_ms=lists_per_call_ms,
+        plain_ms=plain_ms, library_fwd_ms=lib_fwd,
         library_bwd_ms=lib_bwd,
         bound_ms={n: b[0] for n, b in bounds.items()},
         bound_by={n: b[1] for n, b in bounds.items()},
         fraction_of_bound={n: r["bound_ms"] / r["ms"]
-                           for n, r in rows.items()})
+                           for n, r in rows.items()},
+        clocks_before=clocks_before, clocks_after=clocks_after)
     del q, k, v, g, f32, k_out, lse, delta, dq, dk, dv
     del ref_out, ref_lse, ref_dq, ref_dk, ref_dv
     torch.cuda.empty_cache()
@@ -2208,21 +2404,23 @@ def main() -> int:
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     main_row = rows[("paged", 1)]
-    int8_row = int8_rows[("paged", 1)]
+    int8_row = int8_rows[("bfloat16", "paged", 1)]
     kernels = [{
         "name": entry.name, "route": "cuda", "source": entry.source,
         "replaces": entry.replaces, "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}, {
+        "library_ms": main_row["library_ms"],
+        "splits": main_row["splits"]}, {
         "name": f"{entry.name}_int8", "route": "cuda",
         "source": entry.source, "replaces": entry.replaces,
         "launches": int8_launches,
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows.values()),
         "ms": int8_row["ms"], "plain_ms": int8_row["plain_ms"],
         "bound_ms": int8_row["bound_ms"], "bound_by": int8_row["bound_by"],
-        "library_ms": int8_row["library_ms"]}]
+        "library_ms": int8_row["library_ms"],
+        "splits": int8_row["splits"]}]
     for name in K1_NAMES:
         e, r = get_entry(name), k1_rows[name]
         kernels.append({
@@ -2248,7 +2446,8 @@ def main() -> int:
             "replaces": e.replaces, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "variant": next(iter(r["variants"]))})
     say("done", seconds=time.perf_counter() - t_start, build_s=build_s,
         card=card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the port's bf16 kernels (K1 in
-// flash_attention.cu, K2 in fused_ce.cu) on Hopper (sm_90a):
+// flash_attention.cu, K2 in fused_ce.cu, K4 in block_sparse_attention.cu)
+// and the cp.async copies of K3 (decode_attention.cu) on Hopper (sm_90a):
 //
 // - bf16 mma.sync.aligned.m16n8k16 with fp32 accumulators. One warp
 //   multiplies a 16 x 16 A fragment (4 registers of two bf16 each) by a
@@ -92,6 +93,17 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Max and sum over the four lanes of a quad (lanes 4g..4g+3), which
+// together hold one row of a C fragment.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // Two fp32 values as a bf16 pair (lo in the low half: the lower column).

@@ -14,7 +14,7 @@ registers here with its plain PyTorch version:
 - Each :class:`KernelEntry` keeps ``launches``, a plain integer the
   wrapper adds one to where it launches its kernel and nowhere else, so
   a run can show that its main path went through the kernel. A kernel
-  with more than one design (K1 and K2: ``"tensor_core"`` for bf16
+  with more than one design (K1, K2 and K4: ``"tensor_core"`` for bf16
   inputs, ``"fp32_fma"`` for fp32) also counts its launches per design
   in ``variants``.
 """

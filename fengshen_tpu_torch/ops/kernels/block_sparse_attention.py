@@ -21,10 +21,14 @@ a row the uniform mean of V instead (a property of the reference).
 - :func:`cuda_bs_fwd`, :func:`cuda_bs_bwd_dkv` and :func:`cuda_bs_bwd_dq`
   are the kernels' wrappers: each checks its operands, allocates its
   outputs, launches on the current stream, raises ``KernelError`` on a
-  non-zero launch code and counts the launch. The layout goes to the
+  non-zero launch code and counts the launch, by design (:data:`VARIANT`:
+  bf16 inputs run the tensor-core kernels, fp32 the CUDA-core ones; one
+  C entry point per kernel picks by dtype). The layout goes to the
   kernels as compact lists of present blocks per query-block row (CSR)
   and per key-block column (its transpose), built once on the host by
-  :func:`block_csr`, so no kernel loops over an absent block.
+  :func:`block_csr`, so no kernel loops over an absent block, with the
+  rows and the columns in :func:`heavy_first` order, so the tiles with
+  the most present blocks start first.
 - :func:`torch_bs_fwd` and :func:`torch_bs_bwd` are the plain versions:
   per query block, over its present key blocks, each computes what the
   TPU kernels compute, with their rounding: the forward scales ``q`` in
@@ -58,6 +62,9 @@ TILE = 64
 #: tiles along a sequence: the launch grid's second dimension
 MAX_TILES = 65535
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels' design per input dtype: bf16 on the tensor cores, fp32
+#: as fp32 FMAs on the CUDA cores
+VARIANT = {torch.float32: "fp32_fma", torch.bfloat16: "tensor_core"}
 #: the TPU kernels' masking constant: the running max of an empty row
 NEG_INF = -1e30
 
@@ -66,16 +73,29 @@ class BlockCSR(NamedTuple):
     """A layout's present blocks as int32 device tensors: per query-block
     row (``row_ptr [nQ + 1]``, ``col_idx [nnz]``) and per key-block
     column (``col_ptr [nK + 1]``, ``row_idx [nnz]``), each list in
-    ascending order."""
+    ascending order, and the rows and the columns in :func:`heavy_first`
+    order (``row_order [nQ]``, ``col_order [nK]``)."""
 
     row_ptr: torch.Tensor
     col_idx: torch.Tensor
     col_ptr: torch.Tensor
     row_idx: torch.Tensor
+    row_order: torch.Tensor
+    col_order: torch.Tensor
+
+
+def heavy_first(layout) -> np.ndarray:
+    """The rows of a ``[n, m]`` block layout ordered by their present
+    blocks, most first (ties in row order), as int32: the order in which
+    the kernels' grid walks query blocks (pass ``layout.T`` for key
+    blocks), so the longest tiles start first."""
+    counts = np.asarray(layout, dtype=bool).sum(1)
+    return np.argsort(-counts, kind="stable").astype(np.int32)
 
 
 def block_csr(layout, device) -> BlockCSR:
-    """The CSR and CSC lists of a numpy ``[nQ, nK]`` block layout."""
+    """The CSR and CSC lists of a numpy ``[nQ, nK]`` block layout, and
+    its rows' and columns' heavy-first orders."""
     lay = np.asarray(layout, dtype=bool)
 
     def lists(m):
@@ -84,7 +104,9 @@ def block_csr(layout, device) -> BlockCSR:
         return (torch.from_numpy(ptr).to(device),
                 torch.from_numpy(idx).to(device))
 
-    return BlockCSR(*lists(lay), *lists(lay.T))
+    orders = (torch.from_numpy(heavy_first(m)).to(device)
+              for m in (lay, lay.T))
+    return BlockCSR(*lists(lay), *lists(lay.T), *orders)
 
 
 def check_eligible(q, k, v, layout, block_size: int) -> None:
@@ -155,14 +177,14 @@ def _check_bwd(q, dout, lse, delta) -> None:
                              "contiguous, on q's device")
 
 
-def _launch(fn, what: str, q, k, csr_ptrs, tensors, block_size: int):
+def _launch(fn, what: str, q, k, csr_lists, tensors, block_size: int):
     lib = _library(q.device)
     batch, q_len, n_heads, head_dim = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, fn)(
             *(None if t is None else t.data_ptr() for t in tensors),
-            *(t.data_ptr() for t in csr_ptrs), batch, q_len, k.shape[1],
+            *(t.data_ptr() for t in csr_lists), batch, q_len, k.shape[1],
             n_heads, head_dim, block_size, _DTYPE_CODE[q.dtype],
             ctypes.c_void_p(stream))
     _check_rc(lib, rc, what)
@@ -177,9 +199,9 @@ def cuda_bs_fwd(q, k, v, layout, block_size: int, csr: BlockCSR = None):
     lse = torch.empty(q.shape[0], q.shape[2], q.shape[1],
                       dtype=torch.float32, device=q.device)
     _launch("fstpu_bs_fwd", "block-sparse attention forward", q, k,
-            (csr.row_ptr, csr.col_idx),
+            (csr.row_ptr, csr.col_idx, csr.row_order),
             (q, k, v, None, None, None, out, None, lse), block_size)
-    FWD.launches += 1
+    FWD.count(VARIANT[q.dtype])
     return out, lse
 
 
@@ -192,9 +214,9 @@ def cuda_bs_bwd_dkv(q, k, v, dout, lse, delta, layout, block_size: int,
     csr = block_csr(layout, q.device) if csr is None else csr
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("fstpu_bs_bwd_dkv", "block-sparse attention dK/dV", q, k,
-            (csr.col_ptr, csr.row_idx),
+            (csr.col_ptr, csr.row_idx, csr.col_order),
             (q, k, v, dout, lse, delta, dk, dv, None), block_size)
-    DKV.launches += 1
+    DKV.count(VARIANT[q.dtype])
     return dk, dv
 
 
@@ -206,9 +228,9 @@ def cuda_bs_bwd_dq(q, k, v, dout, lse, delta, layout, block_size: int,
     csr = block_csr(layout, q.device) if csr is None else csr
     dq = torch.empty_like(q)
     _launch("fstpu_bs_bwd_dq", "block-sparse attention dQ", q, k,
-            (csr.row_ptr, csr.col_idx),
+            (csr.row_ptr, csr.col_idx, csr.row_order),
             (q, k, v, dout, lse, delta, dq, None, None), block_size)
-    DQ.launches += 1
+    DQ.count(VARIANT[q.dtype])
     return dq
 
 

@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernel library.
 
 Every ``fengshen_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
-``sm_90a`` (one ``nvcc`` process per source, all started together), the
-objects are linked into one shared library with a plain C interface, and
-the library is loaded with ``ctypes``. The library's file name carries a
+``sm_90a`` (one ``nvcc`` process per source, all started together, each
+timed), the objects are linked into one shared library with a plain C
+interface, and the library is loaded with ``ctypes``. The library's file name carries a
 hash of the sources and flags, so an edited source never loads a stale
 build. The build lands in ``fengshen_tpu_torch/_build/`` (listed in
 ``.gitignore``) at first use; a build or load failure raises
@@ -15,6 +15,7 @@ without ``nvcc`` or a card.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -37,6 +39,8 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: what the last build printed (ptxas register/shared-memory report)
 last_build_log = ""
+#: seconds each source took to compile in the last build
+last_build_seconds: dict = {}
 
 
 def sources() -> list[Path]:
@@ -82,26 +86,34 @@ def build() -> Path:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        procs = []
-        for src in srcs:
-            obj = Path(tmp) / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+        objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
+
+        def compile_one(src_obj):
+            src, obj = src_obj
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+        with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+            results = list(pool.map(compile_one, zip(srcs, objs)))
         logs, failed = [], []
-        for src, obj, proc in procs:
-            text, _ = proc.communicate()
-            logs.append(f"== {src.name}\n{text}")
-            if proc.returncode != 0:
-                failed.append(src.name)
+        last_build_seconds.clear()
+        for src, (rc, text, seconds) in zip(srcs, results):
+            last_build_seconds[src.name] = seconds
+            logs.append(f"== {src.name} ({seconds:.1f} s)\n{text}")
+            if rc != 0:
+                failed.append((src.name, text))
         if failed:
-            raise KernelError(f"nvcc failed on {failed}:\n" +
-                              "\n".join(logs)[-8000:])
+            raise KernelError(
+                f"nvcc failed on {[name for name, _ in failed]}:\n" +
+                "\n".join(f"== {name}\n{text[:8000]}"
+                          for name, text in failed))
         tmp_lib = Path(tmp) / out.name
         link = subprocess.run(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-             "-o", str(tmp_lib), *(str(obj) for _, obj, _ in procs)],
+             "-o", str(tmp_lib), *(str(obj) for obj in objs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise KernelError(f"linking {out.name} failed:\n{link.stdout}")
@@ -136,9 +148,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fstpu_decode_attention.argtypes = [
         ptr, ptr, ptr, ptr, ptr,               # q k v k_scale v_scale
-        ptr, ptr, ptr,                         # valid table out
+        ptr, ptr, ptr, ptr, ptr,               # valid table out ws counters
         i32, i32, i32, i32, i32,               # B S H KVH D
         i32, i32, i32, i32,                    # lane_len bs max_blocks nb
+        i32, i32,                              # splits, tiles per split
         i32, i32, ptr]                         # dtype, pool mode, stream
     lib.fstpu_decode_attention.restype = i32
     lib.fstpu_flash_fwd.argtypes = [
@@ -176,7 +189,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr,      # q k v dout lse_in delta
             ptr, ptr, ptr,                     # out out2 lse_out
-            ptr, ptr,                          # block list: ptr, idx
+            ptr, ptr, ptr,                     # block list: ptr idx order
             i32, i32, i32, i32, i32, i32,      # B Sq Sk H D block
             i32, ptr]                          # dtype code, stream
         fn.restype = i32

@@ -21,7 +21,8 @@ int8 pools (the int8 branch, ``:176-181``) come with fp32 per-(token,
 head) scales ``k_scale``/``v_scale`` of the pool's leading shape and the
 compute dtype ``dequant_dtype`` (fp32 when None). Both versions
 dequantize as ``dequantize_kv`` does, ``int8 -> fp32 x scale -> rounded
-to dequant_dtype``; the kernel does it in registers, so the pool stays
+to dequant_dtype``; the kernel stages the raw int8 rows and their scales
+in shared memory and dequantizes as it reads them, so the pool stays
 int8 in device memory and no dequantized copy of it is ever made.
 
 The kernel's rules are its own (the 128-multiples of the TPU kernel's
@@ -29,12 +30,24 @@ The kernel's rules are its own (the 128-multiples of the TPU kernel's
 any paged block size that is a multiple of 8, q in bf16 or fp32, pools
 in q's dtype or int8 with both fp32 scale tensors and a bf16 or fp32
 ``dequant_dtype``, and at most 64 query rows per KV head (H/KVH * S).
+
+The kernel splits each lane into runs of 64-token tiles (split-K) and
+combines the splits' partial softmax states in the same launch.
+:func:`split_plan` is that plan, pure host code: from the lane length
+and the number of (lane, KV head) pairs it picks how many splits each
+pair gets, so that the grid keeps every SM of the card busy however the
+lanes' lengths differ. With more than one split the wrapper hands the
+kernel an fp32 workspace for the partials (allocated per call) and a
+per-device int32 counter per pair (allocated once, left at 0 by every
+launch): calls on one device must come from one stream at a time, as
+the serving engine's do.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,6 +64,58 @@ MAX_QUERY_WINDOW = 8
 MAX_ROWS_PER_KV_HEAD = 64
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: tokens per tile of the kernel (``kTile`` in the CUDA source)
+TILE_TOKENS = 64
+#: most tiles one split walks (``kMaxSplitTiles``): bounds the block-table
+#: entries a split block reads into shared memory
+MAX_SPLIT_TILES = 64
+#: thread blocks a call aims for per SM: about three waves of the three
+#: blocks an SM holds at once in bf16, so that a pair's long lane is
+#: spread over several SMs and short lanes fill in behind it (at
+#: chip_smoke.py's phase-3 shapes, 8 lanes x 40 KV heads of 2048
+#: positions, 8 beat 16 and 32 on paged pools on an H100; PERF.md)
+BLOCKS_PER_SM = 8
+#: SMs of an H100 SXM; the wrapper asks the card
+DEFAULT_SMS = 132
+
+
+def split_plan(lane_len: int, pairs: int,
+               sms: int = DEFAULT_SMS) -> Tuple[int, int]:
+    """``(splits, tiles_per_split)`` for a call with ``pairs`` (lane, KV
+    head) pairs of ``lane_len`` positions: each pair gets enough splits
+    that the grid has about ``BLOCKS_PER_SM * sms`` blocks, never more
+    splits than the lane has tiles nor a split longer than
+    ``MAX_SPLIT_TILES`` tiles; every split holds at least one tile."""
+    tiles = max(1, math.ceil(lane_len / TILE_TOKENS))
+    want = max(1, math.ceil(BLOCKS_PER_SM * sms / max(pairs, 1)),
+               math.ceil(tiles / MAX_SPLIT_TILES))
+    per = math.ceil(tiles / min(want, tiles))
+    return math.ceil(tiles / per), per
+
+
+_SMS: Dict[int, int] = {}
+_COUNTERS: Dict[int, torch.Tensor] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _counters(device: torch.device, pairs: int) -> torch.Tensor:
+    """The device's split counters, one int32 per pair, zero between
+    calls (the kernel's last split block of a pair resets its own)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    buf = _COUNTERS.get(idx)
+    if buf is None or buf.numel() < pairs:
+        buf = torch.zeros(max(pairs, 1024), dtype=torch.int32,
+                          device=torch.device("cuda", idx))
+        _COUNTERS[idx] = buf
+    return buf
 
 
 def _scales_given(k_scale, v_scale) -> bool:
@@ -218,13 +283,21 @@ def cuda_decode_attention(q: torch.Tensor, k: torch.Tensor,
     else:
         mode = 2 if dequant_dtype == torch.bfloat16 else 1
         ks_ptr, vs_ptr = k_scale.data_ptr(), v_scale.data_ptr()
+    pairs = batch * kv_heads
+    splits, per = split_plan(lane_len, pairs, _sm_count(q.device))
+    ws_ptr = cnt_ptr = None
+    if splits > 1:
+        rows = n_heads // kv_heads * s
+        ws = torch.empty(pairs * splits * rows * (head_dim + 2),
+                         dtype=torch.float32, device=q.device)
+        ws_ptr, cnt_ptr = ws.data_ptr(), _counters(q.device, pairs).data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.fstpu_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr, vs_ptr,
-            valid.data_ptr(), table_ptr, out.data_ptr(), batch, s, n_heads,
-            kv_heads, head_dim, lane_len, block_size, max_blocks,
-            num_blocks, _DTYPE_CODE[q.dtype], mode,
+            valid.data_ptr(), table_ptr, out.data_ptr(), ws_ptr, cnt_ptr,
+            batch, s, n_heads, kv_heads, head_dim, lane_len, block_size,
+            max_blocks, num_blocks, splits, per, _DTYPE_CODE[q.dtype], mode,
             ctypes.c_void_p(stream))
     if rc != 0:
         msg = lib.fstpu_error_string(rc).decode(errors="replace")

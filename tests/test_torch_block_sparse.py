@@ -254,6 +254,33 @@ def test_kernel_rules(change, match):
                        torch.zeros(1, 256, 2, 64), np.ones((2, 2), bool), 128)
 
 
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+@pytest.mark.parametrize("seq,block,n_global,seed", [
+    (8192, 128, 1, 0), (8192, 128, 2, 3), (1024, 64, 1, 1), (2304, 192, 1, 2),
+])
+def test_heavy_first_order(seq, block, n_global, seed, axis):
+    """The kernels' grid order (host code): on a BigBird layout the
+    query blocks (rows) or key blocks (columns) heaviest first, expanded
+    to 64-row tiles as the grid walks them: a permutation of the tiles,
+    non-increasing in present blocks, the global blocks first."""
+    from fengshen_tpu_torch.ops.kernels.block_sparse_attention import (
+        TILE, heavy_first)
+    layout = masks.bigbird_block_layout(seq, block, 1, n_global, 3,
+                                        seed=seed)
+    lay = layout if axis == "rows" else layout.T
+    per = block // TILE
+    order = heavy_first(lay)
+    # grid row y takes tile y % per of block order[y // per]
+    tiles = (order[:, None].astype(np.int64) * per +
+             np.arange(per)[None]).reshape(-1)
+    np.testing.assert_array_equal(np.sort(tiles), np.arange(len(lay) * per))
+    counts = lay.sum(1)[tiles // per]
+    assert (np.diff(counts) <= 0).all()
+    assert counts[0] == lay.shape[1] and counts[-1] < counts[0]
+    np.testing.assert_array_equal(np.sort(order[:n_global]),
+                                  np.arange(n_global))
+
+
 # -- on the card ----------------------------------------------------------
 
 @pytest.fixture
@@ -293,6 +320,7 @@ def _close(got, want, what, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("q_len,k_len,heads,head_dim,block", [
     (256, 256, 3, 64, 64), (384, 640, 2, 128, 128), (512, 256, 5, 128, 64),
+    (576, 576, 2, 64, 192), (384, 768, 3, 128, 192),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernels_match_plain(cuda_device, q_len, k_len, heads, head_dim,
@@ -347,3 +375,24 @@ def test_sparse_impl_runs_the_kernels_on_the_card(cuda_device):
     for what, got, want in (("out", out, ref_out), ("dq", qg.grad, ref[0]),
                             ("dk", kg.grad, ref[1]), ("dv", vg.grad, ref[2])):
         _close(got.detach(), want, what, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_each_dtype_runs_its_design(cuda_device, dtype):
+    """bf16 inputs launch only the tensor-core kernels, fp32 inputs only
+    the fp32 FMA kernels, one launch each per call."""
+    from fengshen_tpu_torch.ops.kernels import reset_launch_counts
+    from fengshen_tpu_torch.ops.kernels.block_sparse_attention import VARIANT
+    q, k, v, g, layout = _card_case(256, 256, 2, 64, 128, dtype, seed=5,
+                                    device=cuda_device)
+    reset_launch_counts()
+    out, lse = cuda_bs_fwd(q, k, v, layout, 128)
+    delta = attention_delta(out, g)
+    cuda_bs_bwd_dkv(q, k, v, g, lse, delta, layout, 128)
+    cuda_bs_bwd_dq(q, k, v, g, lse, delta, layout, 128)
+    torch.cuda.synchronize()
+    for name in ("block_sparse_attention_fwd",
+                 "block_sparse_attention_bwd_dkv",
+                 "block_sparse_attention_bwd_dq"):
+        assert get_entry(name).variants == {VARIANT[dtype]: 1}, name

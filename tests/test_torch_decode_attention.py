@@ -301,6 +301,29 @@ def test_eligible_shapes_stop_only_at_the_device():
         check_eligible(*_torch(q, k, v, valid, table))
 
 
+@pytest.mark.parametrize("pairs", [1, 6, 320])
+@pytest.mark.parametrize("lane_len", [8, 64, 1000, 2048, 40000])
+def test_split_plan_covers_the_lane_once(lane_len, pairs):
+    """The kernel's split-K plan (host code): the splits' token ranges
+    cover every position of the lane exactly once, in order, each on a
+    tile boundary, none empty and none longer than MAX_SPLIT_TILES
+    tiles; a call with many pairs gets fewer splits than one with few.
+    1000 and 40000 are not multiples of any split's length."""
+    from fengshen_tpu_torch.ops.kernels.decode_attention import (
+        MAX_SPLIT_TILES, TILE_TOKENS, split_plan)
+    splits, per = split_plan(lane_len, pairs)
+    span = per * TILE_TOKENS      # split i walks [i * span, (i + 1) * span)
+    ranges = [(i * span, min((i + 1) * span, lane_len))
+              for i in range(splits)]
+    assert splits >= 1 and 1 <= per <= MAX_SPLIT_TILES
+    covered = np.concatenate([np.arange(a, b) for a, b in ranges])
+    np.testing.assert_array_equal(covered, np.arange(lane_len))
+    for a, b in ranges:
+        assert a % TILE_TOKENS == 0 and 0 < b - a <= per * TILE_TOKENS
+    assert splits * per * TILE_TOKENS >= lane_len
+    assert split_plan(lane_len, 10 * pairs)[0] <= splits
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -308,19 +331,67 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: shapes of the split-K kernel held on the card (``base`` is the
+#: original case). With 3 lanes the plan gives each (lane, KV head) pair
+#: one split per 64-token tile, so a long lane is walked by many splits:
+#: ``last_split`` puts lane 0's only valid positions in its last split,
+#: ``dead_row`` does too and leaves lane 0's first query row no valid
+#: position (its uniform mean needs the V of tiles whose K is skipped),
+#: ``parked`` keeps lane 1 parked over all of them (its uniform mean
+#: spans every split), ``block8/40/64`` page the lane in blocks of 8, 40
+#: (split boundaries inside a block) and 64, and ``gqa`` is H 64 over
+#: KVH 8 (S 5 becomes S 8: 64 query rows per KV head)
+CARD_CASES = {
+    "base": dict(blocks_per_lane=2, block_size=64),
+    "last_split": dict(blocks_per_lane=32, block_size=64),
+    "dead_row": dict(blocks_per_lane=32, block_size=64),
+    "parked": dict(blocks_per_lane=32, block_size=64),
+    "block8": dict(blocks_per_lane=40, block_size=8),
+    "block40": dict(blocks_per_lane=9, block_size=40),
+    "block64": dict(blocks_per_lane=12, block_size=64),
+    "gqa": dict(blocks_per_lane=4, block_size=64, n_heads=64, kv_heads=8),
+}
+
+
+def _only_in_last_split(valid):
+    """Lane 0 keeps only positions in its last 40 (causal per row)."""
+    virt, s = valid.shape[2], valid.shape[1]
+    pos = np.arange(virt)
+    for t in range(s):
+        valid[0, t] = (pos >= virt - 40) & (pos <= virt - s + t)
+    return valid
+
+
+def _card_args(case, layout, s, device, int8=False):
+    """Operands of ``case`` on the card: q, k, v, valid, table (and the
+    int8 scales)."""
+    kw = dict(CARD_CASES[case])
+    heads = dict(n_heads=kw.pop("n_heads", 8), kv_heads=kw.pop("kv_heads", 2))
+    if case == "gqa" and s == 5:
+        s = 8
+    if int8:
+        arrays = _int8_case(layout, s, seed=21, **heads, **kw)
+    else:
+        arrays = _case(layout, s, seed=11, head_dim=128, **heads, **kw)
+    if case in ("last_split", "dead_row"):
+        _only_in_last_split(arrays[3])
+    if case == "dead_row":
+        arrays[3][0, 0] = False
+    return [None if a is None else torch.from_numpy(a).to(device)
+            for a in arrays]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CARD_CASES))
 @pytest.mark.parametrize("layout", ["slot", "paged"])
 @pytest.mark.parametrize("s", [1, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_matches_plain(cuda_device, layout, s, dtype):
+def test_cuda_kernel_matches_plain(cuda_device, case, layout, s, dtype):
     """The CUDA kernel against the plain version on the card. fp32:
     atol 1e-4 (online softmax and fp32 sums in another order); bf16:
     atol 2e-2 (the plain version rounds the probabilities to bf16 before
     PV, and both round the output to bf16, ulp 2^-8 near 1)."""
-    q, k, v, valid, table = _case(layout, s, 8, 2, seed=11, head_dim=128,
-                                  block_size=64)
-    args = [None if a is None else torch.from_numpy(a).to(cuda_device)
-            for a in (q, k, v, valid, table)]
+    args = _card_args(case, layout, s, cuda_device)
     tq, tk, tv = (a.to(dtype) for a in args[:3])
     entry = get_entry("decode_attention")
     before = entry.launches
@@ -334,20 +405,25 @@ def test_cuda_kernel_matches_plain(cuda_device, layout, s, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["base", "last_split", "dead_row", "gqa"])
 @pytest.mark.parametrize("layout", ["slot", "paged"])
 @pytest.mark.parametrize("s", [1, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_int8_kernel_matches_plain(cuda_device, layout, s, dtype):
+def test_cuda_int8_kernel_matches_plain(cuda_device, case, layout, s, dtype):
     """The int8 branch against the int8 plain version run in fp32 on the
-    same int8 inputs (dequantized through q's dtype), at an odd lane
-    length (paged: 3 blocks of 24) and GQA 6 over 2: each element within
-    1e-4 (fp32) or 2e-2 (bf16 output; the kernel keeps fp32
-    probabilities) of the plain output, and the parked lane finite."""
-    q, k, v, valid, table, ks, vs = _int8_case(
-        layout, s, seed=21, n_heads=6, kv_heads=2, block_size=24,
-        blocks_per_lane=3)
-    args = [None if a is None else torch.from_numpy(a).to(cuda_device)
-            for a in (q, k, v, valid, table, ks, vs)]
+    same int8 inputs (dequantized through q's dtype): the base case at an
+    odd lane length (paged: 3 blocks of 24) and GQA 6 over 2, a long
+    lane whose valid positions lie in its last split, and H 64 over KVH
+    8. Each element within 1e-4 (fp32) or 2e-2 (bf16 output; the kernel
+    keeps fp32 probabilities) of the plain output, and the parked lane
+    finite."""
+    if case == "base":
+        arrays = _int8_case(layout, s, seed=21, n_heads=6, kv_heads=2,
+                            block_size=24, blocks_per_lane=3)
+        args = [None if a is None else torch.from_numpy(a).to(cuda_device)
+                for a in arrays]
+    else:
+        args = _card_args(case, layout, s, cuda_device, int8=True)
     tq = args[0].to(dtype)
     kw = dict(k_scale=args[5], v_scale=args[6], block_table=args[4],
               dequant_dtype=dtype)
@@ -361,3 +437,30 @@ def test_cuda_int8_kernel_matches_plain(cuda_device, layout, s, dtype):
     assert torch.isfinite(out.float()).all()
     atol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bf16", "fp32", "int8"])
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_cuda_kernel_is_bitwise_reproducible(cuda_device, pool, layout):
+    """Two calls on the same inputs give bitwise-equal outputs: the
+    splits' partials combine in a fixed order, and each call leaves the
+    split counters at 0 for the next (a long lane, many splits)."""
+    from fengshen_tpu_torch.ops.kernels.decode_attention import split_plan
+    int8 = pool == "int8"
+    args = _card_args("parked", layout, 5, cuda_device, int8=int8)
+    dtype = torch.float32 if pool == "fp32" else torch.bfloat16
+    q = args[0].to(dtype)
+    if int8:
+        kw = dict(k_scale=args[5], v_scale=args[6],
+                  dequant_dtype=torch.bfloat16)
+        k, v = args[1], args[2]
+    else:
+        kw = {}
+        k, v = args[1].to(dtype), args[2].to(dtype)
+    lane_len = args[3].shape[-1]
+    assert split_plan(lane_len, q.shape[0] * k.shape[2])[0] > 1
+    outs = [decode_attention(q, k, v, args[3], block_table=args[4], **kw)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
