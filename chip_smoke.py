@@ -37,6 +37,19 @@ Phases (each raises on failure, so any failure exits non-zero):
    TF_MARGIN of its argmax; a pool served with one KV head's scales
    halved must fail this bar), counts set to 0 just before each run and
    read just after;
+5b. speculative and sampled serving: the same model through the HTTP
+   server and engine with gamma 4 (K3 verifies windows of S 5):
+   prompt_lookup over paged bf16 and int8 pools, self_draft (the first 2
+   layers as the draft tower) greedy and sampled (temperature 0.8, top_k
+   8) over slot pools, and a plain sampled tick (top_p 0.9, repetition
+   penalty 1.1), on prompts of which half repeat a short n-gram. Greedy
+   tokens meet the teacher-forced bar (int8: the re-scoring bar), two
+   sampled runs under the same request ids give identical tokens, and
+   every sampled token lies in the sampler's support of the re-scoring
+   forward up to TF_MARGIN; K3's launches are pinned per variant (s5
+   per layer per verify tick, s1 per draft layer per draft step); a
+   verify that accepts one draft too many, a rollback that skips a
+   lane and a sampler that ignores top_k must each fail their bar;
 6. profile: a few decode ticks under ``torch.profiler``, over a bf16
    and over an int8 paged pool (device busy and idle share per tick,
    K3's time and share of it, the kernels that take the time);
@@ -45,7 +58,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    forward within a margin derived from fp32 rounding; then served once
    more from an int8 pool, held to the fp32 pool's tokens by the
    margin-aware bar and to the int8 re-scoring (INT8_FP32_MARGIN; the
-   planted halved-scale pool must fail it);
+   planted halved-scale pool must fail it); then, with layers 2-3 made
+   the identity, a greedy self_draft engine must accept every draft
+   (acceptance 1.0, the bonus token through K3 at S 5) and serve the
+   non-spec engine's tokens up to a near-tie within FP32_MARGIN;
 8. training path: ``finetune_ziya_llama.main`` at Ziya width with 4
    layers (fp32 master weights, bf16 compute, flash attention through K1,
    gradient checkpointing, AdamW) for 6 steps over one repeated batch
@@ -216,6 +232,23 @@ INT8_FAULT_HEAD = 3
 #: PR 11), so 1e-2 leaves ten times that; the planted halved-scale pool
 #: gave 2.94 logits
 INT8_FP32_MARGIN = 1e-2
+
+#: speculative and sampled serving (phase 5b): gamma (so K3 verifies
+#: windows of S = gamma+1 = 5 rows per KV head), the self-draft tower's
+#: depth, and the sampling settings of the sampled runs. Half the prompts
+#: are a short random n-gram repeated, so prompt lookup finds matches
+SPEC_GAMMA, SPEC_DRAFT_LAYERS = 4, 2
+SPEC_NGRAM_PERIODS = (3, 4, 5, 7)
+SAMPLE_TEMPERATURE, SAMPLE_TOP_K = 0.8, 8
+SAMPLE_TOP_P, SAMPLE_REPETITION_PENALTY = 0.9, 1.1
+#: the fp32 model's full-acceptance run (phase 7): new tokens such that
+#: every verify tick commits a whole window (1 from the prefill, then
+#: ticks of gamma+1), so the acceptance rate over delivered tokens is 1.0
+#: exactly when every draft is accepted
+FULL_ACCEPT_NEW = 1 + 6 * (SPEC_GAMMA + 1)
+#: tokens beyond a sampled run's support margin that the bar replays
+#: through a cached decode, worst first, before it fails
+REPLAYED_OFFENDERS = 3
 
 K4_NAMES = ("block_sparse_attention_fwd", "block_sparse_attention_bwd_dkv",
             "block_sparse_attention_bwd_dq")
@@ -982,9 +1015,12 @@ def k1_long_context(gen):
 
 # -- phase 4 ------------------------------------------------------------
 
-def post(port: int, text: str) -> tuple:
-    body = json.dumps({"input_text": text,
-                       "max_new_tokens": NEW_TOKENS}).encode()
+def post(port: int, text: str, request_id=None,
+         max_new: int = NEW_TOKENS) -> tuple:
+    payload = {"input_text": text, "max_new_tokens": max_new}
+    if request_id is not None:
+        payload["request_id"] = request_id
+    body = json.dumps(payload).encode()
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/api/text_generation", data=body,
         headers={"Content-Type": "application/json"})
@@ -993,19 +1029,29 @@ def post(port: int, text: str) -> tuple:
         return r.status, json.loads(r.read()), time.perf_counter() - t0
 
 
-def serve_run(pipe, layout: str, prompts, entry, kv_dtype: str = "fp32"):
+def serve_run(pipe, layout: str, prompts, entry, kv_dtype: str = "fp32",
+              engine_args=None, request_ids=None, max_new: int = NEW_TOKENS,
+              stats_out=None):
     """One engine + server on port 0; 8 concurrent POSTs. Returns the
     served token ids per prompt and the launch count of the run.
     ``kv_dtype`` "fp32" keeps the pool in the model's compute dtype;
-    "int8" quantizes it."""
+    "int8" quantizes it. ``engine_args`` adds engine options (sampling,
+    ``spec_mode``); ``request_ids`` names the requests (a sampled
+    request's seed derives from its id). K3's launches are pinned per
+    query-window variant: a plain tick is one ``s1`` launch per layer; a
+    speculative tick one ``s{gamma+1}`` launch per layer, plus, under
+    ``self_draft``, gamma+1 ``s1`` launches per draft layer. The run's
+    ``/stats`` difference goes into ``stats_out`` when given."""
     import torch
     from fengshen_tpu_torch.api.main import (PipelineConfig, ServerConfig,
                                              build_stdlib_server,
                                              start_continuous_engine)
     from fengshen_tpu_torch.ops.kernels import reset_launch_counts
+    engine_args = dict(engine_args or {})
     engine = start_continuous_engine(
         pipe, {"num_slots": 8, "kv_layout": layout, "max_queue": 16,
-               "kv_dtype": kv_dtype})
+               "kv_dtype": kv_dtype, **engine_args})
+    ids = request_ids or [None] * len(prompts)
     server = build_stdlib_server(
         ServerConfig(host="127.0.0.1", port=0),
         PipelineConfig(task="text_generation"), pipeline=pipe,
@@ -1020,9 +1066,11 @@ def serve_run(pipe, layout: str, prompts, entry, kv_dtype: str = "fp32"):
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
             results = list(pool.map(
-                lambda p: post(port, " ".join(map(str, p))), prompts))
+                lambda a: post(port, " ".join(map(str, a[0])), a[1],
+                               max_new), zip(prompts, ids)))
         wall = time.perf_counter() - t0
         launches, dense_calls = entry.launches, entry.dense_calls
+        variants = dict(entry.variants)
         after = engine.stats()
     finally:
         server.shutdown()
@@ -1033,24 +1081,52 @@ def serve_run(pipe, layout: str, prompts, entry, kv_dtype: str = "fp32"):
         sum(before["prefills_per_bucket"].values())
     served = []
     for (status, body, _), prompt in zip(results, prompts):
-        if status != 200 or body["generated_tokens"] != NEW_TOKENS:
+        if status != 200 or body["generated_tokens"] != max_new:
             raise AssertionError(f"{layout}: {status} {body}")
         served.append([int(t) for t in body["result"].split()])
     layers = pipe.module.config.num_hidden_layers
-    if ticks < NEW_TOKENS - 1 or launches != layers * ticks:
+    mode = engine_args.get("spec_mode", "off")
+    gamma = engine_args.get("spec_gamma", 4)
+    if mode == "off":
+        want = {"s1": layers * ticks}
+        min_ticks = max_new - 1
+    else:
+        want = {f"s{gamma + 1}": layers * ticks}
+        if mode == "self_draft":
+            want["s1"] = engine_args.get("spec_draft_layers", 2) * \
+                (gamma + 1) * ticks
+        min_ticks = math.ceil((max_new - 1) / (gamma + 1))
+    if ticks < min_ticks or variants != want or \
+            launches != sum(want.values()):
         raise AssertionError(
-            f"{layout}: {launches} decode-kernel launches over {ticks} "
-            f"decode ticks; every layer of every tick must launch it "
-            f"({layers} x ticks)")
+            f"{layout} {mode}: decode-kernel launches {variants} over "
+            f"{ticks} ticks; want {want}: every layer of every tick "
+            f"launches it, a verify window at S = gamma+1")
     if dense_calls != layers * prefills:
         raise AssertionError(f"{layout}: {dense_calls} dense-route calls "
                              f"for {prefills} prefills")
-    tokens = NEW_TOKENS * len(prompts)
+    if stats_out is not None:
+        stats_out.update(variants=variants, ticks=ticks,
+                         spec_acceptance_rate=after.get(
+                             "spec_acceptance_rate"))
+    tokens = max_new * len(prompts)
+    # a spec engine's acceptance counts only its own run (the warmup tick
+    # records none)
+    spec = {} if mode == "off" else dict(
+        spec_mode=mode, gamma=gamma,
+        acceptance_rate=after["spec_acceptance_rate"],
+        drafted=after["spec_drafted_total"],
+        accepted=after["spec_accepted_total"],
+        tokens_per_tick_all_lanes=(
+            (after["decode_tokens"] - before["decode_tokens"]) / ticks))
     say("serve", layout=layout, kv_dtype=kv_dtype, requests=len(prompts),
+        engine_args=engine_args, variants=variants, **spec,
         prompt_tokens=[len(p) for p in prompts],
         buckets=sorted(after["prefills_per_bucket"]),
         generated_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
-        decode_ticks=ticks, decode_tokens_per_s_engine=(
+        decode_ticks=ticks, decode_ms_per_tick=(
+            (after["decode_seconds"] - before["decode_seconds"]) * 1e3 /
+            ticks), decode_tokens_per_s_engine=(
             (after["decode_tokens"] - before["decode_tokens"]) /
             (after["decode_seconds"] - before["decode_seconds"])),
         latency_s=[round(r[2], 4) for r in results],
@@ -1184,23 +1260,11 @@ def phase_teacher_forced(model, prompts, runs, margin=TF_MARGIN,
     pool holds them (:func:`int8_pool_reads`). Returns the worst gap;
     raises when it passes ``margin``, unless ``check`` is False."""
     import torch
-    from fengshen_tpu_torch.serving import BucketLadder
-    ladder = BucketLadder()
     gaps, top2, spread, exact, total = [], [], [], 0, 0
     with torch.no_grad():
         for layout, served in runs.items():
             for prompt, tokens in zip(prompts, served):
-                bucket = ladder.bucket_for(len(prompt))
-                row, mask = ladder.pad_prompt(prompt, bucket)
-                ids = torch.tensor(list(row) + tokens[:-1], device="cuda")
-                m = torch.tensor(list(mask) + [1] * (len(tokens) - 1),
-                                 device="cuda")
-                pos = (m.cumsum(0) - 1).clamp(min=0)
-                with (int8_pool_reads(bucket) if int8_pool
-                      else contextlib.nullcontext()):
-                    logits = model(ids[None], attention_mask=m[None],
-                                   position_ids=pos[None])[0].float()
-                pred = logits[bucket - 1:]
+                pred, _ = rescored(model, prompt, tokens, int8_pool)
                 chosen = torch.tensor(tokens, device="cuda")
                 gap = pred.max(-1).values - pred.gather(
                     1, chosen[:, None])[:, 0]
@@ -1220,6 +1284,28 @@ def phase_teacher_forced(model, prompts, runs, margin=TF_MARGIN,
         raise AssertionError(f"a served token is {worst} below the "
                              f"teacher-forced argmax (margin {margin})")
     return worst
+
+
+def rescored(model, prompt, tokens, int8_pool=False):
+    """One cacheless forward (dense attention, same weights, the engine's
+    bucket padding and positions) over a served sequence. Returns the
+    fp32 logits that scored each served token ``[T, V]`` and the
+    sequence's history as the engine held it when it chose them: the
+    padded prompt and its mask, then the tokens (``ids``, ``mask``,
+    ``bucket``)."""
+    import torch
+    from fengshen_tpu_torch.serving import BucketLadder
+    ladder = BucketLadder()
+    bucket = ladder.bucket_for(len(prompt))
+    row, mask = ladder.pad_prompt(prompt, bucket)
+    ids = torch.tensor(list(row) + tokens[:-1], device="cuda")
+    m = torch.tensor(list(mask) + [1] * (len(tokens) - 1), device="cuda")
+    pos = (m.cumsum(0) - 1).clamp(min=0)
+    with (int8_pool_reads(bucket) if int8_pool
+          else contextlib.nullcontext()):
+        logits = model(ids[None], attention_mask=m[None],
+                       position_ids=pos[None])[0].float()
+    return logits[bucket - 1:], (ids, m, bucket)
 
 
 def kv_roundtrip_noise(model, seq) -> float:
@@ -1342,11 +1428,273 @@ def phase_int8_serving(model, pipe, prompts, runs):
     return launches
 
 
+# -- phase 5b -----------------------------------------------------------
+
+def spec_prompts(vocab: int):
+    """PROMPT_LENGTHS' lengths; every other prompt is a random n-gram of
+    SPEC_NGRAM_PERIODS' length repeated, the rest random tokens."""
+    import numpy as np
+    rng = np.random.RandomState(5)
+    prompts = []
+    for i, n in enumerate(PROMPT_LENGTHS):
+        if i % 2:
+            prompts.append(rng.randint(3, vocab, n).tolist())
+        else:
+            gram = rng.randint(3, vocab, SPEC_NGRAM_PERIODS[i // 2 % 4])
+            prompts.append(np.resize(gram, n).tolist())
+    return prompts
+
+
+def support_bar(model, prompts, served, phase, *, top_k=0, top_p=0.0,
+                temperature=1.0, repetition_penalty=1.0, margin=TF_MARGIN,
+                check=True):
+    """Sampled tokens re-scored by one cacheless forward (:func:`rescored`;
+    the repetition penalty applied to its logits as the engine applied
+    it, over the padded prompt and the tokens before each): every served
+    token must lie in the sampler's support up to ``margin``, i.e. its
+    logit is at least the support's lowest logit (the top_k-th largest,
+    or the smallest logit of top_p's nucleus) minus ``margin``. Returns
+    the worst shortfall; raises when it passes ``margin``, unless
+    ``check`` is False."""
+    import torch
+    from fengshen_tpu_torch.utils.generate import (apply_logits_controls,
+                                                   top_p_logits)
+    worst, outside, total = -math.inf, 0, 0
+    offenders = []
+    with torch.no_grad():
+        for prompt, tokens in zip(prompts, served):
+            pred, (ids, mask, bucket) = rescored(model, prompt, tokens)
+            n = len(tokens)
+            if repetition_penalty != 1.0:
+                cur = torch.arange(bucket, bucket + n, device="cuda")
+                pred = apply_logits_controls(
+                    pred, ids[None].expand(n, -1), cur[:, None],
+                    history_mask=mask[None].expand(n, -1),
+                    repetition_penalty=repetition_penalty)
+            if top_k:
+                floor = pred.topk(top_k, dim=-1).values[:, -1]
+            else:
+                kept = top_p_logits(pred / temperature, top_p) > -1e8
+                floor = torch.where(kept, pred, math.inf).min(-1).values
+            chosen = pred.gather(
+                1, torch.tensor(tokens, device="cuda")[:, None])[:, 0]
+            short = floor - chosen
+            outside += int((short > 0).sum())
+            total += n
+            for j in (short > 0).nonzero()[:, 0].tolist():
+                offenders.append((float(short[j]), j, tokens[j], ids, mask,
+                                  bucket, pred[j], float(chosen[j]),
+                                  float(floor[j])))
+            worst = max(worst, float(short.max()))
+        # when the bar is about to fail, its worst offenders are replayed
+        # through a cached decode: is the token outside the support of
+        # the served path's arithmetic too (a sampler fault), or only of
+        # the cacheless re-scoring (rounding)?
+        offenders.sort(key=lambda o: -o[0])
+        shown = [dict(shortfall=o[0], position=o[1], chosen_logit=o[7],
+                      floor=o[8],
+                      replay=replay_position(
+                          model, o[3], o[4], o[5], o[1], o[2], top_k,
+                          top_p, temperature, repetition_penalty, o[6])
+                      if check and o[0] > margin and
+                      i < REPLAYED_OFFENDERS else None)
+                 for i, o in enumerate(offenders[:8])]
+    say(phase, sequences=len(served), tokens=total, top_k=top_k,
+        top_p=top_p, temperature=temperature,
+        repetition_penalty=repetition_penalty, worst_shortfall=worst,
+        outside_support=outside, margin=margin, worst_offenders=shown)
+    if check and worst > margin:
+        raise AssertionError(f"{phase}: a sampled token lies {worst} "
+                             f"logits outside the support (margin "
+                             f"{margin})")
+    return worst
+
+
+def replay_position(model, ids, mask, bucket, j, token, top_k, top_p,
+                    temperature, repetition_penalty, rescore):
+    """Diagnostic: the logits of generated position ``j`` by a batch-1
+    cached decode (prefill, then one K3 step per token, the served
+    path's arithmetic), against the cacheless re-scoring ``rescore``:
+    the largest difference, the difference at ``token``, and whether
+    ``token`` lies in the replay's own support."""
+    import torch
+    from fengshen_tpu_torch.utils.generate import (_prefill_cache,
+                                                   apply_logits_controls,
+                                                   top_p_logits)
+    pos = (mask.cumsum(0) - 1).clamp(min=0)
+    logits, cache = _prefill_cache(model, ids[None, :bucket],
+                                   mask[None, :bucket], pos[None, :bucket])
+    for t in range(bucket, bucket + j):
+        logits = model(ids[None, t:t + 1], attention_mask=mask[None, :bucket],
+                       position_ids=pos[None, t:t + 1], cache=cache)
+    step = logits[0, -1].float()
+    if repetition_penalty != 1.0:
+        step = apply_logits_controls(
+            step[None], ids[None], bucket + j, history_mask=mask[None],
+            repetition_penalty=repetition_penalty)[0]
+    if top_k:
+        floor = step.topk(top_k).values[-1]
+    else:
+        kept = top_p_logits(step[None] / temperature, top_p)[0] > -1e8
+        floor = torch.where(kept, step, math.inf).min()
+    diff = step - rescore
+    return dict(max_abs_diff=float(diff.abs().max()),
+                diff_at_token=float(diff[token]),
+                in_replay_support=bool(step[token] >= floor),
+                replay_shortfall=float(floor - step[token]))
+
+
+def accept_one_beyond(round_tokens):
+    """A planted verify fault: every lane with a rejection accepts one
+    draft more than matched (its rejected draft commits)."""
+    import torch
+
+    def faulty(t_logits, d_logits, d, rng, **kw):
+        n_r, w = round_tokens(t_logits, d_logits, d, rng, **kw)
+        gamma = d.shape[1]
+        lanes = torch.arange(d.shape[0], device=d.device)
+        short = n_r < gamma
+        w = w.clone()
+        w[lanes[short], n_r[short]] = d[lanes[short], n_r[short]]
+        return torch.where(short, n_r + 1, n_r), w
+    return faulty
+
+
+def rollback_skipping_a_lane(rollback):
+    """A planted rollback fault: the first active lane with a rejected
+    tail keeps it (its cursor is not lowered)."""
+    def faulty(cache, delta):
+        delta = delta.clone()
+        rolled = (delta > 0).nonzero()
+        if len(rolled):
+            delta[rolled[0, 0]] = 0
+        rollback(cache, delta)
+    return faulty
+
+
+def top_k_ignored(top_k_logits):
+    """A planted sampler fault: top-k filtering does nothing."""
+    def faulty(logits, k=0, p=0.0, filter_value=-1e9):
+        return top_k_logits(logits, 0, p, filter_value)
+    return faulty
+
+
+def planted_serving_fault(name, patch, run, bar):
+    """Serve with one fault planted (``patch`` a context manager) and
+    hold the tokens to ``bar(tokens, check=False)``: the bar must reject
+    them, or the phase fails."""
+    with patch:
+        served = run()
+    worst = bar(served)
+    say("spec_planted", fault=name, worst=worst, margin=TF_MARGIN,
+        rejected=worst > TF_MARGIN)
+    if worst <= TF_MARGIN:
+        raise AssertionError(f"planted fault {name!r} passed its bar "
+                             f"(worst {worst}, margin {TF_MARGIN})")
+
+
+def phase_spec_serving(model, pipe, card):
+    """The 40-layer bf16 model served with speculative and sampled ticks
+    through the HTTP server and engine (8 slots, gamma 4, 32 new tokens):
+
+    1. prompt_lookup, greedy, paged bf16 pool: teacher-forced bar; K3
+       launches exactly 40 x verify ticks at s5 and none at s1;
+    2. prompt_lookup over a paged int8 pool: the int8 re-scoring bar;
+    3. self_draft (2 layers), greedy, slot bf16 pool: teacher-forced bar;
+       K3 launches (40 at s5 + 2 x 5 at s1) x ticks;
+    4. sampled self_draft (temperature 0.8, top_k 8): two runs under the
+       same request ids give bitwise-identical tokens; every token lies
+       in the top-8 of the re-scoring forward, up to TF_MARGIN;
+    5. a plain sampled tick (top_p 0.9, repetition penalty 1.1): the
+       same support bar with top_p's nucleus.
+
+    Then the three planted faults (a verify that accepts one draft beyond
+    the matched prefix, a rollback that skips one active lane, a sampler
+    that ignores top_k) must each fail its bar. Returns the s5 launches
+    per pool dtype (bf16, int8)."""
+    from fengshen_tpu_torch.ops.kernels import get_entry
+    from fengshen_tpu_torch.serving import engine as engine_mod
+    from fengshen_tpu_torch.utils import generate as generate_mod
+    entry = get_entry("decode_attention")
+    prompts = spec_prompts(model.config.vocab_size)
+    spec = {"spec_gamma": SPEC_GAMMA}
+    lookup = {**spec, "spec_mode": "prompt_lookup"}
+    draft = {**spec, "spec_mode": "self_draft",
+             "spec_draft_layers": SPEC_DRAFT_LAYERS}
+    top_k = {"do_sample": True, "temperature": SAMPLE_TEMPERATURE,
+             "top_k": SAMPLE_TOP_K}
+    nucleus = {"do_sample": True, "top_p": SAMPLE_TOP_P,
+               "repetition_penalty": SAMPLE_REPETITION_PENALTY}
+    ids = [f"spec-{i}" for i in range(len(prompts))]
+    s5 = f"s{SPEC_GAMMA + 1}"
+    verify = {"bfloat16": 0, "int8": 0}
+
+    def run(layout, args, kv_dtype="fp32", count=True):
+        stats = {}
+        served, _ = serve_run(pipe, layout, prompts, entry, kv_dtype,
+                              engine_args=args, request_ids=ids,
+                              stats_out=stats)
+        if count:
+            verify["int8" if kv_dtype == "int8" else "bfloat16"] += \
+                stats["variants"].get(s5, 0)
+        return served
+
+    lookup_paged = run("paged", lookup)
+    phase_teacher_forced(model, prompts, {"lookup_paged": lookup_paged},
+                         phase="spec_lookup_tf")
+    lookup_int8 = run("paged", lookup, "int8")
+    phase_teacher_forced(model, prompts, {"lookup_int8": lookup_int8},
+                         phase="spec_lookup_int8_rescore", int8_pool=True)
+    draft_slot = run("slot", draft)
+    phase_teacher_forced(model, prompts, {"draft_slot": draft_slot},
+                         phase="spec_draft_tf")
+    sampled = [run("slot", {**draft, **top_k}) for _ in range(2)]
+    identical = sampled[0] == sampled[1]
+    say("spec_sampled_repeat", bitwise_identical=identical,
+        sequences=len(prompts), card=card)
+    if not identical:
+        raise AssertionError("two sampled self_draft runs under the same "
+                             "request ids gave different tokens")
+    support_bar(model, prompts, sampled[0], "spec_sampled_support",
+                top_k=SAMPLE_TOP_K, temperature=SAMPLE_TEMPERATURE)
+    plain = run("paged", nucleus)
+    support_bar(model, prompts, plain, "sampled_nucleus_support",
+                top_p=SAMPLE_TOP_P,
+                repetition_penalty=SAMPLE_REPETITION_PENALTY)
+
+    def tf(served):
+        return phase_teacher_forced(model, prompts, {"planted": served},
+                                    phase="spec_planted_tf", check=False)
+    planted_serving_fault(
+        "verify accepts one draft beyond the matched prefix",
+        patched(engine_mod, "_spec_round_tokens",
+                accept_one_beyond(engine_mod._spec_round_tokens)),
+        lambda: run("paged", lookup, count=False), tf)
+    planted_serving_fault(
+        "rollback skips one active lane",
+        patched(engine_mod, "rollback_slots",
+                rollback_skipping_a_lane(engine_mod.rollback_slots)),
+        lambda: run("paged", lookup, count=False), tf)
+    planted_serving_fault(
+        "sampler ignores top_k",
+        patched(generate_mod, "top_k_logits",
+                top_k_ignored(generate_mod.top_k_logits)),
+        lambda: run("slot", {**draft, **top_k}, count=False),
+        lambda served: support_bar(
+            model, prompts, served, "spec_planted_support",
+            top_k=SAMPLE_TOP_K, temperature=SAMPLE_TEMPERATURE,
+            check=False))
+    return verify
+
+
 # -- phase 6 ------------------------------------------------------------
 
-def phase_profile(pipe, prompts, ticks: int = 8, kv_dtype: str = "fp32"):
-    """Where a decode tick's time goes: a paged engine (``kv_dtype`` pool)
-    with all 8 lanes decoding, ``ticks`` ticks under ``torch.profiler``. Reports wall time
+def phase_profile(pipe, prompts, ticks: int = 8, kv_dtype: str = "fp32",
+                  layout: str = "paged", engine_args=None):
+    """Where a decode tick's time goes: an engine (``layout``, ``kv_dtype``
+    pool, ``engine_args``: a speculative tick when they name a
+    ``spec_mode``) with all 8 lanes decoding, ``ticks`` ticks under
+    ``torch.profiler``. Reports wall time
     per tick, device-busy time per tick (sum of kernel self times; one
     stream, so kernels do not overlap), the device's idle share, and the
     kernels that take most device time. Run after the timed phases, so
@@ -1355,8 +1703,10 @@ def phase_profile(pipe, prompts, ticks: int = 8, kv_dtype: str = "fp32"):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from fengshen_tpu_torch.api.main import create_continuous_engine
+    engine_args = dict(engine_args or {})
     engine = create_continuous_engine(
-        pipe, {"num_slots": 8, "kv_layout": "paged", "kv_dtype": kv_dtype})
+        pipe, {"num_slots": 8, "kv_layout": layout, "kv_dtype": kv_dtype,
+               **engine_args})
     engine.warmup()
     for p in prompts:
         engine.submit(p, max_new_tokens=NEW_TOKENS)
@@ -1378,7 +1728,8 @@ def phase_profile(pipe, prompts, ticks: int = 8, kv_dtype: str = "fp32"):
     k3_ms = sum(us for name, us in kernels.items()
                 if "decode_split_kernel" in name) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    say("profile", layout="paged", kv_dtype=kv_dtype, lanes=8, ticks=ticks,
+    say("profile", layout=layout, kv_dtype=kv_dtype,
+        engine_args=engine_args, lanes=8, ticks=ticks,
         wall_ms_per_tick=wall * 1e3 / ticks,
         device_busy_ms_per_tick=(busy_ms / ticks if kernels else
                                  "not measured: no device events"),
@@ -1431,9 +1782,53 @@ def phase_fp32_serving(prompts):
              "fp32_int8_bar")
     int8_rescoring_bar(model, pipe, prompts, {"paged": served8},
                        INT8_FP32_MARGIN, "fp32_int8_rescore")
+    full_acceptance(model, pipe, prompts, entry)
     del model, pipe
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def full_acceptance(model, pipe, prompts, entry):
+    """The fp32 model with layers 2 and 3 reduced to the identity (their
+    o_proj and down_proj zeroed, so the residual stream passes through
+    them unchanged): its 2-layer self-draft then computes the target's
+    logits, so a greedy self_draft engine (fp32 slot pool) must accept
+    every draft (acceptance 1.0 over FULL_ACCEPT_NEW tokens, which fill
+    whole windows) and serve the non-spec engine's tokens. They may part
+    only at a near-tie: at a sequence's first disagreement the cacheless
+    forward's top-2 gap must be within FP32_MARGIN."""
+    import torch
+    with torch.no_grad():
+        for layer in model.model.layers[SPEC_DRAFT_LAYERS:]:
+            layer.self_attn.o_proj.weight.zero_()
+            layer.mlp.down_proj.weight.zero_()
+    plain, _ = serve_run(pipe, "slot", prompts, entry,
+                         max_new=FULL_ACCEPT_NEW)
+    stats = {}
+    spec, _ = serve_run(pipe, "slot", prompts, entry,
+                        engine_args={"spec_mode": "self_draft",
+                                     "spec_gamma": SPEC_GAMMA,
+                                     "spec_draft_layers": SPEC_DRAFT_LAYERS},
+                        max_new=FULL_ACCEPT_NEW, stats_out=stats)
+    parted = []
+    with torch.no_grad():
+        for prompt, want, got in zip(prompts, plain, spec):
+            t = next((i for i, (a, b) in enumerate(zip(want, got))
+                      if a != b), None)
+            if t is not None:
+                top2 = rescored(model, prompt, want)[0][t].topk(2).values
+                parted.append({"position": t,
+                               "top2_gap": float(top2[0] - top2[1])})
+    rate = stats["spec_acceptance_rate"]
+    say("fp32_full_acceptance", acceptance_rate=rate,
+        identical_sequences=len(prompts) - len(parted),
+        sequences=len(prompts), first_disagreements=parted,
+        margin=FP32_MARGIN, ticks=stats["ticks"],
+        variants=stats["variants"])
+    if rate != 1.0 or any(p["top2_gap"] > FP32_MARGIN for p in parted):
+        raise AssertionError(
+            f"fp32 self_draft over identity layers: acceptance {rate}, "
+            f"disagreements {parted} (margin {FP32_MARGIN})")
 
 
 # -- phase 8 ------------------------------------------------------------
@@ -2382,6 +2777,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    # seconds from the start at the end of each phase (the script's time
+    # limit is shared by every slice's phases)
+    marks = {}
+
+    def mark(name):
+        marks[name] = round(time.perf_counter() - t_start, 1)
+
     card = phase_device()
     build_s = phase_build()
     rows = phase_kernels()
@@ -2389,18 +2791,32 @@ def main() -> int:
     k1_rows = phase_flash_kernels()
     k2_rows = phase_ce_kernels()
     k4_rows = phase_block_sparse()
+    mark("3_kernels")
     model, pipe, prompts, runs, launches = phase_main_path()
     phase_teacher_forced(model, prompts, runs)
+    mark("4_serving")
     int8_launches = phase_int8_serving(model, pipe, prompts, runs)
+    mark("5_int8_serving")
+    verify_launches = phase_spec_serving(model, pipe, card)
+    mark("5b_spec_serving")
     phase_profile(pipe, prompts)
     phase_profile(pipe, prompts, kv_dtype="int8")
+    phase_profile(pipe, prompts, engine_args={
+        "spec_mode": "prompt_lookup", "spec_gamma": SPEC_GAMMA})
+    phase_profile(pipe, prompts, layout="slot", engine_args={
+        "spec_mode": "self_draft", "spec_gamma": SPEC_GAMMA,
+        "spec_draft_layers": SPEC_DRAFT_LAYERS})
+    mark("6_profile")
     del model, pipe
     gc.collect()
     torch.cuda.empty_cache()
     phase_fp32_serving(prompts)
+    mark("7_fp32_serving")
     with tempfile.TemporaryDirectory() as tmp:
         k1_launches = phase_training(Path(tmp))
+        mark("8_training")
         long_launches = phase_long_context(Path(tmp))
+        mark("9_long_context")
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     main_row = rows[("paged", 1)]
@@ -2421,6 +2837,21 @@ def main() -> int:
         "bound_ms": int8_row["bound_ms"], "bound_by": int8_row["bound_by"],
         "library_ms": int8_row["library_ms"],
         "splits": int8_row["splits"]}]
+    # the same kernel on the speculative verify windows (S = gamma+1):
+    # launches from phase 5b's runs, times from phase 3's S 5 rows
+    for name, row, dtype in (
+            (f"{entry.name}_verify", rows[("paged", SPEC_GAMMA + 1)],
+             "bfloat16"),
+            (f"{entry.name}_int8_verify",
+             int8_rows[("bfloat16", "paged", SPEC_GAMMA + 1)], "int8")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": entry.source,
+            "replaces": entry.replaces,
+            "launches": verify_launches[dtype],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "splits": row["splits"], "variant": f"s{SPEC_GAMMA + 1}"})
     for name in K1_NAMES:
         e, r = get_entry(name), k1_rows[name]
         kernels.append({
@@ -2449,7 +2880,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "variant": next(iter(r["variants"]))})
     say("done", seconds=time.perf_counter() - t_start, build_s=build_s,
-        card=card)
+        phase_end_s=marks, card=card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

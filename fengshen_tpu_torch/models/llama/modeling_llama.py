@@ -38,6 +38,7 @@ projections' outputs (a selective checkpoint).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import List, NamedTuple, Optional, Union
 
@@ -484,3 +485,32 @@ class LlamaForCausalLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.model.norm.weight.device
+
+
+def make_self_draft(model: LlamaForCausalLM,
+                    n_layers: int) -> LlamaForCausalLM:
+    """Early-exit draft for self-speculative decoding
+    (``modeling_llama.py:644``): the target's own first ``n_layers``
+    decoder layers plus its shared embedding, final norm and LM head.
+    The draft's modules ARE the target's, so every parameter aliases the
+    target's tensor and nothing is copied. Its config is a copy with
+    ``num_hidden_layers=n_layers``."""
+    cfg = model.config
+    if not 0 < n_layers < cfg.num_hidden_layers:
+        raise ValueError(
+            f"make_self_draft: n_layers={n_layers} must be in "
+            f"(0, {cfg.num_hidden_layers})")
+    draft_cfg = dataclasses.replace(cfg, num_hidden_layers=n_layers)
+    # assemble without __init__, which would allocate fresh weights
+    stack = LlamaModel.__new__(LlamaModel)
+    nn.Module.__init__(stack)
+    stack.config = draft_cfg
+    stack.embed_tokens = model.model.embed_tokens
+    stack.layers = nn.ModuleList(model.model.layers[:n_layers])
+    stack.norm = model.model.norm
+    draft = LlamaForCausalLM.__new__(LlamaForCausalLM)
+    nn.Module.__init__(draft)
+    draft.config = draft_cfg
+    draft.model = stack
+    draft.lm_head = model.lm_head
+    return draft

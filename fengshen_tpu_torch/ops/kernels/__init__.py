@@ -16,7 +16,8 @@ registers here with its plain PyTorch version:
   a run can show that its main path went through the kernel. A kernel
   with more than one design (K1, K2 and K4: ``"tensor_core"`` for bf16
   inputs, ``"fp32_fma"`` for fp32) also counts its launches per design
-  in ``variants``.
+  in ``variants``; K3 counts its launches there per query-window length
+  (``"s1"``, ``"s5"``, ...).
 """
 
 from __future__ import annotations
@@ -92,7 +93,8 @@ class KernelEntry:
     #: ``impl="sparse"`` calls with a bias, mask, dropout or segment ids,
     #: or on CPU tensors, as the reference falls back)
     dense_calls: int = 0
-    #: launches per design of a kernel that has more than one
+    #: launches per design of a kernel that has more than one (K3: per
+    #: query-window length)
     variants: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def count(self, variant: Optional[str] = None) -> None:

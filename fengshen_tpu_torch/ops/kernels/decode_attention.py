@@ -11,7 +11,9 @@
 - :func:`cuda_decode_attention` is the kernel's wrapper: it checks
   device, dtype, shape and contiguity, allocates the output, launches on
   the current stream, raises on a non-zero launch code and counts the
-  launch.
+  launch, per query-window length in ``KernelEntry.variants``
+  (``"s1"`` for a decode tick, ``"s5"`` for a speculative verify window
+  of gamma 4), so a serving run can show which windows went through it.
 - :func:`torch_decode_attention` is the plain version, a copy of
   ``xla_decode_attention`` (``:117-150``): take-gather of the paged
   pool, dequantization of an int8 window, GQA repeat, then dense
@@ -303,7 +305,7 @@ def cuda_decode_attention(q: torch.Tensor, k: torch.Tensor,
         msg = lib.fstpu_error_string(rc).decode(errors="replace")
         raise KernelError(f"decode_attention kernel launch failed: "
                           f"CUDA error {rc} ({msg})")
-    ENTRY.launches += 1
+    ENTRY.count(f"s{s}")
     return out
 
 

@@ -46,6 +46,15 @@ def assign_slot(pool: KVCache, primed: KVCache, slot: int) -> None:
     pool.index[slot] = int(primed.index)
 
 
+def rollback_slots(cache: KVCache, delta: torch.Tensor) -> None:
+    """Lower each lane's cursor by its own ``delta`` (``[num_slots]``),
+    the per-lane ``utils.generate._rollback_cache`` (``cache.py:64``).
+    The speculative tick advances every lane by gamma+1 and each lane
+    rolls back its rejected tail: entries past the cursor are masked and
+    later overwritten in place."""
+    cache.index = cache.index - delta
+
+
 def reset_free_slots(cache: KVCache, active: torch.Tensor) -> None:
     """Park inactive lanes (``active`` is a ``[num_slots]`` bool tensor):
     their cursor goes to 0 and, on a paged pool, their block-table row

@@ -1,6 +1,7 @@
 """Continuous-batching inference engine: the port of
-``fengshen_tpu/serving/engine.py`` (greedy decode over slot and paged
-pools, in the compute dtype or int8).
+``fengshen_tpu/serving/engine.py`` (greedy and sampled decode with the
+logits controls, and speculative ticks, over slot and paged pools in
+the compute dtype or int8).
 
 Many requests share a fixed pool of ``num_slots`` KV lanes:
 
@@ -17,17 +18,32 @@ Many requests share a fixed pool of ``num_slots`` KV lanes:
 - backpressure: a bounded queue; ``submit`` raises :class:`QueueFull`
   (429 at the API) or :class:`PromptTooLong` (413);
 - paged pool: admission charges each request its footprint in blocks,
-  and an exhausted pool defers the head of the queue until reclaim.
+  and an exhausted pool defers the head of the queue until reclaim;
+- sampling (``do_sample``): each lane draws under its own key, from the
+  engine's ``seed`` and the request's seed (``submit(seed=...)``, else
+  the CRC-32 of its id), at a draw counter that starts at admission and
+  advances once per tick; a lane's tokens never depend on which other
+  requests share the pool (``utils/rng.py``);
+- logits controls (repetition penalty, ``no_repeat_ngram_size`` 1,
+  ``min_length``) read a per-lane token history on the device;
+- speculative ticks (``spec_mode``): ``"prompt_lookup"`` drafts
+  ``spec_gamma`` tokens per lane from its committed history,
+  ``"self_draft"`` from the target's own first ``spec_draft_layers``
+  layers (``make_self_draft``, over a slot pool of its own in the compute
+  dtype); ONE target forward verifies every lane's ``[gamma+1]`` window
+  (on the card, K3 at S = gamma+1) and each lane commits its accepted
+  prefix plus one token and rolls its cursor back over the rest.
 
-The host holds the authoritative per-lane state (cursor, position, last
-token) and uploads it every tick, so the pool needs no device-side
-bookkeeping between ticks. Greedy output is token-identical to
-``utils.generate.generate`` (the tests pin it).
+The host holds the authoritative per-lane position, last token and
+cursor. The plain tick uploads the cursor every tick; a speculative tick
+leaves it on the device, where the verify forward advances it by
+gamma+1 and ``rollback_slots`` takes each lane's rejected tail back off,
+as the reference's does. Greedy output, speculative or not, is
+token-identical to ``utils.generate.generate`` (the tests pin it).
 
-Not yet ported from the reference: sampling, logits controls,
-speculative ticks, the commit journal, streams, timelines,
-the flight recorder, AOT, drain and evacuation. Options that ask for
-them raise ``NotImplementedError``.
+Not yet ported from the reference: resume-from-token-k, the commit
+journal, streams, timelines, the flight recorder, AOT, drain and
+evacuation. Options that ask for them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ import dataclasses
 import itertools
 import threading
 import time
+import zlib
 from collections import deque
 from typing import Callable, Optional, Sequence
 
@@ -43,18 +60,24 @@ import numpy as np
 import torch
 
 from fengshen_tpu_torch.device import check_module_device
+from fengshen_tpu_torch.models.llama.modeling_llama import (KVCache,
+                                                            make_self_draft)
 from fengshen_tpu_torch.ops.kernels import KernelError, log_dispatch
 from fengshen_tpu_torch.serving.buckets import DEFAULT_BUCKETS, BucketLadder
-from fengshen_tpu_torch.serving.cache import assign_slot, reset_free_slots
+from fengshen_tpu_torch.serving.cache import (assign_slot, init_slot_cache,
+                                              reset_free_slots,
+                                              rollback_slots)
 from fengshen_tpu_torch.serving.metrics import EngineMetrics
 from fengshen_tpu_torch.serving.paged_cache import (BlockAllocator,
                                                     assign_paged,
                                                     assign_slot_quantized,
                                                     blocks_for_tokens,
                                                     init_pool_cache)
-from fengshen_tpu_torch.utils.generate import (_prefill_cache,
-                                               _select_token,
-                                               position_ids_from_mask)
+from fengshen_tpu_torch.utils.generate import (
+    STREAM_DRAFT, STREAM_ROUND, STREAM_TOKEN, _controls_active,
+    _ngram_propose_lanes, _prefill_cache, _select_token, _spec_round_tokens,
+    _spec_round_tokens_lanes, apply_logits_controls, position_ids_from_mask)
+from fengshen_tpu_torch.utils.rng import Draws, lane_key
 
 
 class QueueFull(Exception):
@@ -78,10 +101,11 @@ _NOT_PORTED = "not yet ported"
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Engine knobs (``engine.py:123``). Every field of the reference's
-    dataclass is accepted, so its configs load; the sampling,
-    logits-control, speculative and debug-ring options raise
-    ``NotImplementedError`` for anything but their defaults."""
+    """Engine knobs (``engine.py:123``), validated as the reference
+    validates them (``:205-238``). Every field of the reference's
+    dataclass is accepted, so its configs load; ``debug_ring`` and
+    ``journal_ring`` raise ``NotImplementedError`` for anything but their
+    defaults."""
 
     num_slots: int = 8
     buckets: Sequence[int] = DEFAULT_BUCKETS
@@ -138,22 +162,38 @@ class EngineConfig:
                 f"unknown spec_mode {self.spec_mode!r}; expected 'off', "
                 "'prompt_lookup' or 'self_draft'")
         if self.spec_mode != "off":
-            raise NotImplementedError(
-                f"spec_mode={self.spec_mode!r}: {_NOT_PORTED}")
-        for name in ("spec_gamma", "spec_ngram", "spec_draft_layers",
-                     "debug_ring", "journal_ring"):
+            if self.spec_gamma < 1:
+                raise ValueError("spec_gamma must be >= 1")
+            if self.spec_ngram < 1:
+                raise ValueError("spec_ngram must be >= 1")
+            if self.spec_mode == "self_draft" and \
+                    self.spec_draft_layers < 1:
+                raise ValueError("spec_draft_layers must be >= 1")
+            if self.do_sample and self.spec_mode == "prompt_lookup":
+                # the rejection rule divides by the drafter's proposal
+                # distribution; copied tokens come from none
+                raise ValueError(
+                    "spec_mode='prompt_lookup' is greedy-only "
+                    "(do_sample=False): lookup proposals carry no "
+                    "draft distribution for the rejection-sampling "
+                    "accept rule (use spec_mode='self_draft' for "
+                    "sampled speculation)")
+            if _controls_active(self.repetition_penalty,
+                                self.no_repeat_ngram_size,
+                                self.min_length):
+                # the processors act at ONE committed cursor; the verify
+                # forward scores gamma+1 positions at once
+                raise ValueError(
+                    "spec_mode cannot run logits controls "
+                    "(repetition_penalty / no_repeat_ngram_size / "
+                    "min_length act per committed cursor, but the "
+                    "verify forward scores gamma+1 positions at once)")
+        for name in ("debug_ring", "journal_ring"):
             default = type(self).__dataclass_fields__[name].default
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} (default {default!r}): "
                     f"{_NOT_PORTED}")
-        if self.do_sample:
-            raise NotImplementedError(f"do_sample=True: {_NOT_PORTED}")
-        if (self.repetition_penalty != 1.0 or self.no_repeat_ngram_size
-                or self.min_length):
-            raise NotImplementedError(
-                f"logits controls (repetition_penalty / "
-                f"no_repeat_ngram_size / min_length): {_NOT_PORTED}")
 
 
 class Request:
@@ -175,6 +215,9 @@ class Request:
         self.ttft_s: Optional[float] = None
         self.finish_reason: Optional[str] = None
         self.slot: Optional[int] = None
+        #: sampling seed (``submit`` resolves it): with the engine's seed
+        #: it makes the lane's key at admission
+        self.seed: int = 0
         self._cancel = False
         self._done = threading.Event()
 
@@ -213,6 +256,13 @@ class ContinuousBatchingEngine:
         log_dispatch(self._log, self.device)
         self.max_len = int(model.config.max_position_embeddings)
         self.paged = config.kv_layout == "paged"
+        self.spec = config.spec_mode != "off"
+        self.self_draft = config.spec_mode == "self_draft"
+        # admission reserves gamma EXTRA positions per lane: the verify
+        # forward writes the whole gamma+1 window before the accept
+        # counts are known, so a rejected tail lands past the cursor
+        # (masked, later overwritten) but must stay inside the lane
+        self._gamma = config.spec_gamma if self.spec else 0
         S = config.num_slots
         if self.paged:
             bs = int(config.kv_block_size)
@@ -239,11 +289,31 @@ class ContinuousBatchingEngine:
             self._deferred_req: Optional[str] = None
         else:
             self.seq_capacity = self.max_len
-        if self.ladder.buckets[0] + 1 > self.seq_capacity:
+        if self.ladder.buckets[0] + 1 + self._gamma > self.seq_capacity:
             raise ValueError(
                 f"smallest bucket {self.ladder.buckets[0]} leaves no "
                 f"decode headroom in the KV lane capacity "
-                f"{self.seq_capacity}")
+                f"{self.seq_capacity}" + self._gamma_note())
+        if self.self_draft:
+            # the target's first spec_draft_layers layers with its shared
+            # embedding, norm and head (no copy); its pool is a slot pool
+            # in the compute dtype with the target lanes' capacity, never
+            # paged or int8, so its cursors stay congruent with the
+            # target's
+            self._draft_model = make_self_draft(model,
+                                                config.spec_draft_layers)
+            self._draft_model.config = self._draft_model.model.config = \
+                dataclasses.replace(self._draft_model.config,
+                                    max_position_embeddings=self.seq_capacity)
+            self._draft_cache = init_slot_cache(self._draft_model, S)
+        cfg = config
+        self._control_kw = dict(repetition_penalty=cfg.repetition_penalty,
+                                no_repeat_ngram_size=cfg.no_repeat_ngram_size,
+                                min_length=cfg.min_length,
+                                eos_token_id=cfg.eos_token_id)
+        self._controls_on = _controls_active(cfg.repetition_penalty,
+                                             cfg.no_repeat_ngram_size,
+                                             cfg.min_length)
 
         self._cache = self._init_pool()
         pool = self._cache
@@ -253,11 +323,20 @@ class ContinuousBatchingEngine:
             (pool.key_scales + pool.value_scales if pool.quantized else []))
         self._mask = torch.zeros((S, self.seq_capacity), dtype=torch.long,
                                  device=self.device)
+        # each lane's tokens by physical position (padded prompt, then
+        # committed tokens): the controls' history and the lookup
+        # drafter's text
+        self._history = torch.zeros_like(self._mask)
         # host-side per-slot state (authoritative for scheduling)
         self._last_tok = np.zeros((S,), np.int64)
         self._pos = np.zeros((S,), np.int64)    # logical position of last_tok
         self._phys = np.zeros((S,), np.int64)   # physical cache cursor
         self._active = np.zeros((S,), bool)
+        # sampling: each lane's key (two 32-bit words, installed at
+        # admission) and draw counter (0 is the prefill's draw; every
+        # tick uses the next, whether or not the lane commits)
+        self._keys = np.zeros((S, 2), np.int64)
+        self._draw = np.zeros((S,), np.int64)
         self._slot_req: list[Optional[Request]] = [None] * S
         self._queue: deque[Request] = deque()
         self._cv = threading.Condition()
@@ -275,6 +354,10 @@ class ContinuousBatchingEngine:
         return init_pool_cache(self.model, cfg.num_slots, layout="slot",
                                kv_dtype=cfg.kv_dtype)
 
+    def _gamma_note(self) -> str:
+        return (f" (speculative window needs gamma={self._gamma} extra "
+                "positions)" if self._gamma else "")
+
     # ---- submission side -------------------------------------------
 
     def _reject(self, reason: str, ids: np.ndarray, **attrs) -> None:
@@ -284,11 +367,14 @@ class ContinuousBatchingEngine:
 
     def submit(self, input_ids, max_new_tokens: Optional[int] = None,
                request_id: Optional[str] = None,
-               deadline_s: Optional[float] = None) -> Request:
+               deadline_s: Optional[float] = None,
+               seed: Optional[int] = None) -> Request:
         """Queue a prompt. Raises QueueFull (backpressure) or
         PromptTooLong (no bucket or no cache headroom). ``deadline_s`` is
         seconds from now; an expired request frees its slot and finishes
-        with reason "deadline"."""
+        with reason "deadline". ``seed`` pins the request's sampling
+        stream; None derives it from the request id (``:983-988``), so a
+        retry under the same id draws the same tokens."""
         if self._fatal is not None:
             raise EngineStopped(self.stopped_reason())
         if max_new_tokens is not None and int(max_new_tokens) < 1:
@@ -303,16 +389,20 @@ class ContinuousBatchingEngine:
             raise PromptTooLong(
                 f"prompt of {len(ids)} tokens exceeds the largest "
                 f"bucket {self.ladder.max_bucket}")
-        max_new = min(requested_new, self.seq_capacity - bucket)
+        # the lane holds the bucket, the generated tokens and the
+        # gamma-wide speculative tail
+        max_new = min(requested_new,
+                      self.seq_capacity - bucket - self._gamma)
         if max_new < 1:
             self._reject("prompt_too_long", ids, bucket=int(bucket))
             raise PromptTooLong(
                 f"bucket {bucket} leaves no decode headroom in the KV "
-                f"lane capacity {self.seq_capacity}")
+                f"lane capacity {self.seq_capacity}" + self._gamma_note())
         if self.paged:
             # a footprint the whole pool cannot hold would sit at the
             # head of the queue forever: reject it now
-            need = blocks_for_tokens(bucket + max_new, self.block_size)
+            need = blocks_for_tokens(bucket + max_new + self._gamma,
+                                     self.block_size)
             if need > self._allocator.total_blocks:
                 self._reject("kv_pool_too_small", ids, blocks_needed=need)
                 raise PromptTooLong(
@@ -321,6 +411,8 @@ class ContinuousBatchingEngine:
         now = self._clock()
         req = Request(ids, max_new, request_id,
                       None if deadline_s is None else now + deadline_s, now)
+        req.seed = (int(seed) & 0x7FFFFFFF) if seed is not None \
+            else zlib.crc32(req.request_id.encode()) & 0x7FFFFFFF
         with self._cv:
             # again under the lock: the serve thread sets _fatal and
             # exits holding it, and nothing drains the queue after that
@@ -384,8 +476,11 @@ class ContinuousBatchingEngine:
         active_idx = np.nonzero(self._active)[0]
         if len(active_idx) == 0:
             return 0
+        if self.spec:
+            return self._spec_step(active_idx)
         t0 = time.perf_counter()
         nxt = self._decode_tick()
+        self._draw += 1
         self.metrics.record_tick(len(active_idx), self.config.num_slots,
                                  time.perf_counter() - t0)
         self._last_tok = nxt
@@ -402,6 +497,60 @@ class ContinuousBatchingEngine:
                 self._release(i, FINISHED, "length")
         return int(self._active.sum())
 
+    def _spec_step(self, active_idx: np.ndarray) -> int:
+        """One speculative tick and its commit: each lane takes its
+        accepted prefix plus the correction (1..gamma+1 tokens), cut at
+        eos or its max_new; the cursors advance by what was committed
+        (``engine.py:1075-1135``)."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        n_r, win = self._spec_tick()
+        self._draw += 1
+        dt = time.perf_counter() - t0
+        commit = np.where(self._active, n_r + 1, 0)
+        last = win[np.arange(win.shape[0]), np.maximum(commit - 1, 0)]
+        self._last_tok = np.where(self._active, last, cfg.pad_token_id)
+        self._pos += commit
+        self._phys += commit
+        # metrics count DELIVERED tokens: a lane that finishes inside
+        # its window drops the tail
+        delivered = accepted = 0
+        for i in active_idx:
+            req = self._slot_req[i]
+            k, fin = 0, None
+            for tok in (int(t) for t in win[i, :commit[i]]):
+                req.tokens.append(tok)
+                k += 1
+                if cfg.eos_token_id is not None and \
+                        tok == cfg.eos_token_id:
+                    fin = "eos"
+                    break
+                if len(req.tokens) >= req.max_new_tokens:
+                    fin = "length"
+                    break
+            if fin is not None:
+                self._release(i, FINISHED, fin)
+            delivered += k
+            # tokens at offsets < n_r are accepted drafts, the one at
+            # n_r the correction
+            accepted += min(int(n_r[i]), k)
+        self.metrics.record_tick(len(active_idx), cfg.num_slots, dt,
+                                 tokens=delivered)
+        self.metrics.record_spec(cfg.spec_gamma * len(active_idx), accepted)
+        return int(self._active.sum())
+
+    def _tick_draws(self) -> Draws:
+        """Every lane's key at its current draw counter (copies: the host
+        arrays move on after the tick)."""
+        return Draws(torch.tensor(self._keys, device=self.device),
+                     torch.tensor(self._draw, device=self.device))
+
+    def _select(self, logits: torch.Tensor,
+                draws: Optional[Draws]) -> torch.Tensor:
+        cfg = self.config
+        return _select_token(logits, draws, cfg.do_sample, cfg.temperature,
+                             cfg.top_k, cfg.top_p)
+
     @torch.no_grad()
     def _decode_tick(self) -> np.ndarray:
         """One forward of every lane's last token at its own cursor.
@@ -409,26 +558,129 @@ class ContinuousBatchingEngine:
         output is the pad token. Returns the next tokens on the host."""
         dev = self.device
         active = torch.from_numpy(self._active).to(dev)
-        self._cache.index = torch.from_numpy(self._phys).to(dev)
+        phys = torch.from_numpy(self._phys).to(dev)
+        tokens = torch.from_numpy(self._last_tok).to(dev)
+        self._cache.index = phys
         reset_free_slots(self._cache, active)
+        # the token chosen last tick joins the history at its cursor,
+        # where the forward writes its K/V
+        self._history[torch.arange(len(tokens), device=dev), phys] = tokens
         logits = self.model(
-            torch.from_numpy(self._last_tok).to(dev)[:, None],
-            attention_mask=self._mask,
+            tokens[:, None], attention_mask=self._mask,
             position_ids=torch.from_numpy(self._pos).to(dev)[:, None],
             cache=self._cache)
-        nxt = torch.where(active, _select_token(logits[:, -1]),
+        step_logits = logits[:, -1]
+        if self._controls_on:
+            step_logits = apply_logits_controls(
+                step_logits, self._history, (phys + 1)[:, None],
+                history_mask=self._mask, **self._control_kw)
+        draws = self._tick_draws().sub(STREAM_TOKEN) \
+            if self.config.do_sample else None
+        nxt = torch.where(active, self._select(step_logits, draws),
                           self.config.pad_token_id)
         return nxt.cpu().numpy()
 
     @torch.no_grad()
-    def _prefill(self, row: np.ndarray, mask_row: np.ndarray):
+    def _spec_tick(self):
+        """Draft ``gamma`` tokens per lane, verify every lane's window
+        ``[last, d_1..d_gamma]`` in ONE target forward, and take each
+        lane's accept counts ``n_r`` and window tokens ``win`` (padded
+        after the commit) to the host. ``prompt_lookup`` drafts from the
+        lane's history (``engine.py:634-690``); ``self_draft`` runs
+        gamma+1 batched draft steps over its own pool (``:538-632``).
+        Both pools advance gamma+1 in the forward and roll back
+        gamma - n_r per lane together."""
+        cfg = self.config
+        dev = self.device
+        gamma = cfg.spec_gamma
+        active = torch.from_numpy(self._active).to(dev)
+        phys = torch.from_numpy(self._phys).to(dev)
+        pos = torch.from_numpy(self._pos).to(dev)
+        tokens = torch.from_numpy(self._last_tok).to(dev)
+        lanes = torch.arange(len(tokens), device=dev)
+        steps = torch.arange(gamma + 1, device=dev)[None]
+        if self.paged:
+            # park reclaimed lanes on the null block BEFORE the forward:
+            # their blocks may already belong to another lane
+            reset_free_slots(self._cache, active)
+        self._history[lanes, phys] = tokens
+        tick = self._tick_draws() if cfg.do_sample else None
+        if self.self_draft:
+            reset_free_slots(self._draft_cache, active)
+            cur, props, d_steps = tokens, [], []
+            for i in range(gamma + 1):
+                # the first step writes the committed token's draft K/V;
+                # the last proposal is never verified, but its forward
+                # writes the K/V the next tick would need
+                step = self._draft_model(
+                    cur[:, None], attention_mask=self._mask,
+                    position_ids=(pos + i)[:, None],
+                    cache=self._draft_cache)[:, -1]
+                cur = self._select(step, None if tick is None else
+                                   tick.sub(STREAM_DRAFT).sub(i))
+                props.append(cur)
+                d_steps.append(step)
+            drafts = torch.stack(props[:gamma], dim=1)
+            d_logits = torch.stack(d_steps[:gamma], dim=1) \
+                if cfg.do_sample else None
+        else:
+            drafts = _ngram_propose_lanes(self._history, phys + 1,
+                                          cfg.spec_ngram, gamma, tokens)
+        verify = torch.cat([tokens[:, None], drafts], dim=1)
+        logits = self.model(verify, attention_mask=self._mask,
+                            position_ids=pos[:, None] + steps,
+                            cache=self._cache)
+        if self.self_draft:
+            n_r, w = _spec_round_tokens_lanes(
+                logits, d_logits, drafts,
+                None if tick is None else tick.sub(STREAM_ROUND),
+                do_sample=cfg.do_sample, temperature=cfg.temperature,
+                top_k=cfg.top_k, top_p=cfg.top_p)
+        else:
+            n_r, w = _spec_round_tokens(logits, None, drafts, None,
+                                        do_sample=False)
+        n_r = torch.where(active, n_r, 0)
+        delta = torch.where(active, gamma - n_r, 0)
+        rollback_slots(self._cache, delta)
+        if self.self_draft:
+            rollback_slots(self._draft_cache, delta)
+        if not self.paged:
+            reset_free_slots(self._cache, active)
+        win = torch.where(steps < (n_r + 1)[:, None], w,
+                          cfg.pad_token_id)
+        win = torch.where(active[:, None], win, cfg.pad_token_id)
+        # the committed window joins the history after the cursor, for
+        # the next tick's drafter (the slot past it holds pad)
+        self._history[lanes[:, None], phys[:, None] + 1 + steps] = win
+        return n_r.cpu().numpy(), win.cpu().numpy()
+
+    @torch.no_grad()
+    def _prefill(self, row: np.ndarray, mask_row: np.ndarray,
+                 key=(0, 0)):
         """Batch-1 prefill of a bucket-padded prompt; returns the first
-        token and the primed lockstep cache."""
+        token (the controls applied, drawn under the lane ``key`` at
+        counter 0 when sampling) and the primed lockstep cache."""
         ids = torch.from_numpy(row).to(self.device).long()[None]
         mask = torch.from_numpy(mask_row).to(self.device).long()[None]
         logits, primed = _prefill_cache(self.model, ids, mask,
                                         position_ids_from_mask(mask))
-        return int(_select_token(logits[:, -1])[0]), primed
+        step_logits = logits[:, -1]
+        if self._controls_on:
+            step_logits = apply_logits_controls(
+                step_logits, ids, ids.shape[1], history_mask=mask,
+                **self._control_kw)
+        draws = Draws(torch.tensor([key], device=self.device),
+                      torch.zeros(1, dtype=torch.long, device=self.device)
+                      ).sub(STREAM_TOKEN) if self.config.do_sample else None
+        return int(self._select(step_logits, draws)[0]), primed
+
+    def _draft_primed(self, primed: KVCache) -> KVCache:
+        """The draft tower's primed lane: its layers are the target's
+        first layers, so their prompt K/V are the target prefill's
+        (before any quantization), cut to the draft pool's lanes."""
+        n, L = self.config.spec_draft_layers, self.seq_capacity
+        return KVCache([k[:, :L] for k in primed.keys[:n]],
+                       [v[:, :L] for v in primed.values[:n]], primed.index)
 
     def _admit(self) -> None:
         for slot in range(self.config.num_slots):
@@ -448,8 +700,9 @@ class ContinuousBatchingEngine:
                 # admission needs enough free blocks for the request's
                 # footprint; when the pool can't serve it, the head of
                 # the queue waits for reclaim (FIFO)
-                need = blocks_for_tokens(bucket + req.max_new_tokens,
-                                         self.block_size)
+                need = blocks_for_tokens(
+                    bucket + req.max_new_tokens + self._gamma,
+                    self.block_size)
                 blocks = self._allocator.alloc(need)
                 if blocks is None:
                     self._queue.appendleft(req)
@@ -467,7 +720,8 @@ class ContinuousBatchingEngine:
             try:
                 row, mask_row = self.ladder.pad_prompt(
                     req.prompt, bucket, self.config.pad_token_id)
-                tok, primed = self._prefill(row, mask_row)
+                key = lane_key(self.config.seed, req.seed)
+                tok, primed = self._prefill(row, mask_row, key)
                 self.metrics.record_prefill(bucket)
                 req.ttft_s = self._clock() - req.submit_time
                 self.metrics.record_ttft(req.ttft_s)
@@ -483,6 +737,9 @@ class ContinuousBatchingEngine:
                         self._allocator.free(blocks)
                     self._finish(req, FINISHED, done)
                     continue
+                if self.self_draft:
+                    assign_slot(self._draft_cache,
+                                self._draft_primed(primed), slot)
                 if self.paged:
                     assign_paged(self._cache, primed, slot, blocks)
                 elif self._cache.quantized:
@@ -490,10 +747,14 @@ class ContinuousBatchingEngine:
                 else:
                     assign_slot(self._cache, primed, slot)
                 # mask lane: the padded prompt, open from the bucket edge
-                # on (causal validity bounds the open tail)
+                # on (causal validity bounds the open tail); history
+                # lane: the padded prompt
                 self._mask[slot] = 1
                 self._mask[slot, :bucket] = torch.from_numpy(
                     mask_row).to(self.device)
+                self._history[slot] = 0
+                self._history[slot, :bucket] = torch.from_numpy(
+                    row).to(self.device)
             except BaseException:
                 # the popped request must not hang and its blocks must
                 # go back to the pool before the error propagates
@@ -510,6 +771,8 @@ class ContinuousBatchingEngine:
             self._last_tok[slot] = tok
             self._pos[slot] = len(req.prompt)   # logical pos of last_tok
             self._phys[slot] = bucket           # physical cursor
+            self._keys[slot] = key
+            self._draw[slot] = 1
 
     def _release(self, slot: int, state: str, reason: str) -> None:
         req = self._slot_req[slot]
@@ -604,7 +867,13 @@ class ContinuousBatchingEngine:
             self._slot_blocks = [[] for _ in range(self.config.num_slots)]
             self._deferred_req = None
         self._cache = self._init_pool()
+        if self.self_draft:
+            self._draft_cache = init_slot_cache(self._draft_model,
+                                                self.config.num_slots)
         self._mask.zero_()
+        self._history.zero_()
+        self._keys[:] = 0
+        self._draw[:] = 0
         self._last_tok[:] = 0
         self._pos[:] = 0
         self._phys[:] = 0
@@ -619,19 +888,22 @@ class ContinuousBatchingEngine:
             self._thread = None
 
     def warmup(self) -> float:
-        """Run one prefill per bucket and one decode tick before traffic,
-        so the first user pays neither the kernel build nor the
-        libraries' first-call setup. Returns seconds. With every lane
-        free the tick only writes where nothing is read (lane position 0,
-        the null block)."""
+        """Run one prefill per bucket and one decode (or speculative)
+        tick before traffic, so the first user pays neither the kernel
+        build nor the libraries' first-call setup. Returns seconds. With
+        every lane free the tick only writes where nothing is read (lane
+        positions from 0, the null block)."""
         t0 = time.perf_counter()
         with self._cv:
             for bucket in self.ladder.buckets:
-                if bucket + 1 > self.seq_capacity:
+                if bucket + 1 + self._gamma > self.seq_capacity:
                     continue
                 self._prefill(np.ones((bucket,), np.int32),
                               np.ones((bucket,), np.int32))
-            self._decode_tick()
+            if self.spec:
+                self._spec_tick()
+            else:
+                self._decode_tick()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -683,6 +955,9 @@ class ContinuousBatchingEngine:
                 last_error = {"type": self._last_error["type"],
                               "age_s": now - self._last_error["at"]}
             return self.metrics.snapshot(
+                spec=({"mode": self.config.spec_mode,
+                       "gamma": self.config.spec_gamma}
+                      if self.spec else None),
                 queue_depth=len(self._queue),
                 slots_active=int(self._active.sum()),
                 num_slots=self.config.num_slots,

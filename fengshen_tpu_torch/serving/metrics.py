@@ -32,6 +32,8 @@ class EngineMetrics:
         self._occupied = 0
         self._lane_ticks = 0
         self._peak_active = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self._ttft: deque = deque(maxlen=window)
         self._latency: deque = deque(maxlen=window)
         self.warmup_s: Optional[float] = None
@@ -45,14 +47,23 @@ class EngineMetrics:
             self._prefills[bucket] = self._prefills.get(bucket, 0) + 1
 
     def record_tick(self, n_active: int, num_slots: int,
-                    seconds: float) -> None:
+                    seconds: float, tokens: Optional[int] = None) -> None:
+        """One decode tick; ``tokens`` is what it delivered (default one
+        per active lane, the plain tick; a speculative tick delivers
+        1..gamma+1 per lane)."""
         with self._lock:
             self._ticks += 1
-            self._decode_tokens += n_active
+            self._decode_tokens += n_active if tokens is None else tokens
             self._decode_s += seconds
             self._occupied += n_active
             self._lane_ticks += num_slots
             self._peak_active = max(self._peak_active, n_active)
+
+    def record_spec(self, drafted: int, accepted: int) -> None:
+        """One speculative verify's draft and accept tallies."""
+        with self._lock:
+            self._spec_drafted += drafted
+            self._spec_accepted += accepted
 
     def record_ttft(self, seconds: float) -> None:
         with self._lock:
@@ -62,9 +73,12 @@ class EngineMetrics:
         with self._lock:
             self._latency.append(seconds)
 
-    def snapshot(self, **extra) -> dict:
+    def snapshot(self, spec: Optional[dict] = None, **extra) -> dict:
         """The ``/stats`` payload; ``extra`` (queue depth, pool state)
-        comes from the engine."""
+        comes from the engine. ``spec`` (``{"mode", "gamma"}``) adds the
+        speculative section (``serving/metrics.py:298-308`` of the
+        reference); None, a non-spec engine, keeps the payload's keys as
+        they were."""
         with self._lock:
             ttft = list(self._ttft)
             out = dict(self._counts)
@@ -83,5 +97,12 @@ class EngineMetrics:
                 ttft_p95_s=_percentile(ttft, 0.95),
                 latency_p50_s=_percentile(list(self._latency), 0.5),
                 warmup_s=self.warmup_s)
+            if spec is not None:
+                drafted, accepted = self._spec_drafted, self._spec_accepted
+                out.update(spec_mode=spec["mode"], spec_gamma=spec["gamma"],
+                           spec_drafted_total=drafted,
+                           spec_accepted_total=accepted,
+                           spec_acceptance_rate=(accepted / drafted
+                                                 if drafted else 0.0))
         out.update(extra)
         return out

@@ -1,30 +1,180 @@
-"""Greedy KV-cached generation: the port of
-``fengshen_tpu/utils/generate.py`` (``_select_token`` :144, greedy
-``generate`` :152, ``_prefill_cache`` :256).
+"""KV-cached generation, sampling and speculative decoding: the port of
+``fengshen_tpu/utils/generate.py`` (filters :26-150, ``generate`` :152,
+``_rollback_cache`` :241, ``_prefill_cache`` :256, speculative decoding
+and prompt lookup :278-677).
 
-The reference runs the decode loop as one ``lax.scan`` inside jit; here
-it is a Python loop of eager forwards over a lockstep :class:`KVCache`
-with a scalar cursor. Sampling and the logits controls are not yet
-ported and raise.
+The reference runs each decode loop as one ``lax.scan`` or
+``lax.while_loop`` inside jit; here each is a Python loop of eager
+forwards over a lockstep :class:`KVCache` with a scalar cursor.
+
+Random draws come from :mod:`.rng`: a draw is a pure function of the
+call's ``seed``, the row and a draw counter, so sampled output cannot
+match the reference's threefry bits; it matches its distributions (the
+tests hold both to ``_spec_dist``'s exact probabilities). Seq2seq and
+beam search are not yet ported.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from fengshen_tpu_torch.device import check_module_device
 from fengshen_tpu_torch.models.llama.modeling_llama import (KVCache,
                                                             torch_dtype)
+from fengshen_tpu_torch.utils.rng import Draws, categorical
+
+#: stream words under a draw counter (the counterpart of the reference's
+#: key splits): the token of a plain step, the speculative round's
+#: accept / residual / bonus draws, and draft step ``i`` at DRAFT + i
+STREAM_TOKEN, STREAM_ACCEPT, STREAM_RESIDUAL, STREAM_BONUS = 0, 1, 2, 3
+STREAM_ROUND, STREAM_DRAFT = 8, 16
 
 
-def _select_token(logits: torch.Tensor, do_sample: bool = False
-                  ) -> torch.Tensor:
-    """Greedy selection: argmax of the fp32 logits."""
-    if do_sample:
-        raise NotImplementedError("sampling is not yet ported")
-    return logits.float().argmax(-1)
+# -- filters and logits controls ---------------------------------------
+
+def top_k_logits(logits: torch.Tensor, k: int = 0, p: float = 0.0,
+                 filter_value: float = -1e9) -> torch.Tensor:
+    """Combined top-k then nucleus filtering (``:26``)."""
+    if k > 0:
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, filter_value, logits)
+    if p > 0.0:
+        logits = top_p_logits(logits, p, filter_value)
+    return logits
+
+
+def top_p_logits(logits: torch.Tensor, p: float,
+                 filter_value: float = -1e9) -> torch.Tensor:
+    """Nucleus filtering (``:38``): keep the smallest set of tokens with
+    cumulative probability >= p (always keeps the argmax)."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    # mask tokens whose prefix (excluding themselves) already reaches p
+    cutoff = (cum - probs) >= p
+    threshold = torch.where(cutoff, torch.inf, sorted_logits).min(
+        dim=-1, keepdim=True).values
+    return torch.where(logits < threshold, filter_value, logits)
+
+
+def _seen(history: torch.Tensor, valid: torch.Tensor,
+          vocab: int) -> torch.Tensor:
+    """``[N, V]`` bool: token v occurs at a valid history position."""
+    return torch.zeros(history.shape[0], vocab, dtype=torch.int32,
+                       device=history.device).scatter_reduce(
+        1, history.long(), valid.to(torch.int32), reduce="amax").bool()
+
+
+def apply_logits_controls(logits, history, cur_index, *,
+                          repetition_penalty: float = 1.0,
+                          no_repeat_ngram_size: int = 0,
+                          min_length: int = 0,
+                          eos_token_id: Optional[int] = None,
+                          history_mask=None):
+    """HF-``generate``-compatible logits processors (``:52``).
+
+    ``logits [N, V]``; ``history [N, L]`` tokens so far (prompt
+    included); ``cur_index``: count of valid history tokens, an int or
+    an ``[N, 1]`` tensor (the serving pool's per-lane cursors);
+    ``history_mask [N, L]`` marks real tokens (left-padded prompts)."""
+    n_rows, vocab = logits.shape
+    length = history.shape[1]
+    dev = logits.device
+    logits = logits.float()
+    valid = torch.arange(length, device=dev)[None, :] < cur_index
+    if history_mask is not None:
+        valid = valid & history_mask.bool()
+
+    if repetition_penalty != 1.0:
+        penalized = torch.where(logits > 0, logits / repetition_penalty,
+                                logits * repetition_penalty)
+        logits = torch.where(_seen(history, valid, vocab), penalized,
+                             logits)
+
+    if no_repeat_ngram_size == 1:
+        # HF semantics at size 1: ban every previously generated token
+        logits = torch.where(_seen(history, valid, vocab), -1e9, logits)
+    elif no_repeat_ngram_size > 1:
+        n = no_repeat_ngram_size
+        n_win = length - n + 1
+        if n_win > 0:
+            # windows [s, s+n) inside the valid prefix; candidate v is
+            # banned when the last (n-1)-gram plus v matches one of them
+            # (the reference slices at a scalar cursor, clamped as
+            # dynamic_slice clamps)
+            cur = int(cur_index)
+            idx = torch.arange(n_win, device=dev)[:, None] + \
+                torch.arange(n - 1, device=dev)[None, :]
+            wins = history[:, idx]                            # [N, W, n-1]
+            nxt_pos = torch.arange(n - 1, length, device=dev)
+            nxt = history[:, nxt_pos]                         # [N, W]
+            win_ok = valid[:, idx].all(-1) & valid[:, nxt_pos]
+            start = min(max(cur - (n - 1), 0), length - (n - 1))
+            last = history[:, start:start + n - 1]
+            match = (wins == last[:, None, :]).all(-1) & win_ok
+            match = match & (cur >= n - 1)
+            banned = _seen(nxt, match, vocab)
+            logits = torch.where(banned, -1e9, logits)
+
+    if min_length > 0 and eos_token_id is not None:
+        eos_col = torch.arange(vocab, device=dev) == eos_token_id
+        logits = torch.where(eos_col[None] & (cur_index < min_length),
+                             -1e9, logits)
+    return logits
+
+
+def _controls_active(repetition_penalty, no_repeat_ngram_size,
+                     min_length) -> bool:
+    return (repetition_penalty != 1.0 or no_repeat_ngram_size > 0 or
+            min_length > 0)
+
+
+def _make_control(control_kw: dict, history_mask=None):
+    """``control(logits, history, cur_index)``: identity when no control
+    is active, else :func:`apply_logits_controls` bound to the settings
+    (``:122``)."""
+    if not _controls_active(control_kw["repetition_penalty"],
+                            control_kw["no_repeat_ngram_size"],
+                            control_kw["min_length"]):
+        return lambda logits, history, cur: logits
+    return functools.partial(apply_logits_controls,
+                             history_mask=history_mask, **control_kw)
+
+
+def _filtered_logits(logits, temperature, top_k, top_p):
+    """THE sampling filter pipeline (``:134``): fp32, temperature, then
+    combined top-k/top-p. Shared by :func:`_select_token` and
+    :func:`_spec_dist`, so the rejection scheme compares exactly the
+    distribution proposals are drawn from."""
+    logits = logits.float() / max(temperature, 1e-6)
+    return top_k_logits(logits, k=top_k, p=top_p)
+
+
+def _select_token(logits, rng: Optional[Draws] = None,
+                  do_sample: bool = False, temperature: float = 1.0,
+                  top_k: int = 0, top_p: float = 0.0) -> torch.Tensor:
+    """Greedy argmax of the fp32 logits, or one draw per row from the
+    filtered distribution under ``rng`` (``:144``)."""
+    if not do_sample:
+        return logits.float().argmax(-1)
+    return categorical(rng, _filtered_logits(logits, temperature, top_k,
+                                             top_p))
+
+
+# -- caches ---------------------------------------------------------------
+
+def _rollback_cache(cache: KVCache, delta) -> KVCache:
+    """Lower the cache's cursor by ``delta`` (an int, or a ``[B]``
+    tensor for a vector cursor), in place (``:241``). Sound because
+    entries are written AT the cursor and attention reads only
+    ``key_pos <= idx + t``: stale tail entries are masked and later
+    overwritten."""
+    cache.index = cache.index - delta
+    return cache
 
 
 def _prefill_cache(model, input_ids: torch.Tensor,
@@ -49,36 +199,49 @@ def position_ids_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:
     return (attention_mask.long().cumsum(-1) - 1).clamp(min=0)
 
 
-def _check_controls(do_sample, repetition_penalty, no_repeat_ngram_size,
-                    min_length) -> None:
-    if do_sample:
-        raise NotImplementedError("sampling is not yet ported")
-    if repetition_penalty != 1.0 or no_repeat_ngram_size or min_length:
-        raise NotImplementedError("logits controls are not yet ported")
+def _prepare(model, input_ids, attention_mask, device):
+    dev = check_module_device(model, device)
+    input_ids = torch.as_tensor(input_ids, device=dev).long()
+    if attention_mask is None:
+        attention_mask = torch.ones_like(input_ids)
+    attention_mask = torch.as_tensor(attention_mask, device=dev).long()
+    return dev, input_ids, attention_mask
 
+
+# -- plain decoding -------------------------------------------------------
 
 @torch.no_grad()
 def generate(model, input_ids, attention_mask=None,
              max_new_tokens: int = 32, do_sample: bool = False,
+             temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
              eos_token_id: Optional[int] = None, pad_token_id: int = 0,
              repetition_penalty: float = 1.0, no_repeat_ngram_size: int = 0,
-             min_length: int = 0, device=None) -> torch.Tensor:
-    """Greedy batched decode with a preallocated KV cache.
+             min_length: int = 0, seed: int = 0,
+             device=None) -> torch.Tensor:
+    """Batched decode with a preallocated KV cache (``:152``).
 
-    ``input_ids`` is LEFT-padded ``[B, S]``; ``attention_mask`` marks real
-    tokens. Returns ``[B, S + max_new_tokens]`` with pad after eos.
-    ``device=None`` means ``cuda``; the model must live on the device."""
-    dev = check_module_device(model, device)
-    _check_controls(do_sample, repetition_penalty, no_repeat_ngram_size,
-                    min_length)
-    input_ids = torch.as_tensor(input_ids, device=dev).long()
+    ``input_ids`` is LEFT-padded ``[B, S]``; ``attention_mask`` marks
+    real tokens. Returns ``[B, S + max_new_tokens]`` with pad after eos.
+    ``min_length`` counts the FULL sequence (prompt + generated). Row
+    ``i`` samples under ``seed`` as request ``i``; step ``t`` (0 for the
+    first token) is its draw counter. ``device=None`` means ``cuda``;
+    the model must live on the device."""
+    dev, input_ids, attention_mask = _prepare(model, input_ids,
+                                              attention_mask, device)
     batch, prompt_len = input_ids.shape
     if max_new_tokens <= 0:
         return input_ids
-    if attention_mask is None:
-        attention_mask = torch.ones_like(input_ids)
-    attention_mask = torch.as_tensor(attention_mask, device=dev).long()
     total_len = prompt_len + max_new_tokens
+    hist_mask = F.pad(attention_mask, (0, max_new_tokens), value=1)
+    control = _make_control(
+        dict(repetition_penalty=repetition_penalty,
+             no_repeat_ngram_size=no_repeat_ngram_size,
+             min_length=min_length, eos_token_id=eos_token_id),
+        history_mask=hist_mask)
+    draws = Draws.for_rows(seed, batch, device=dev).sub(STREAM_TOKEN)
+    select = functools.partial(_select_token, do_sample=do_sample,
+                               temperature=temperature, top_k=top_k,
+                               top_p=top_p)
 
     position_ids = position_ids_from_mask(attention_mask)
     logits, cache = _prefill_cache(model, input_ids, attention_mask,
@@ -86,7 +249,7 @@ def generate(model, input_ids, attention_mask=None,
     buf = torch.full((batch, total_len), pad_token_id, dtype=torch.long,
                      device=dev)
     buf[:, :prompt_len] = input_ids
-    token = _select_token(logits[:, -1])
+    token = select(control(logits[:, -1], buf, prompt_len), draws.at(0))
     buf[:, prompt_len] = token
     finished = torch.zeros(batch, dtype=torch.bool, device=dev)
     if eos_token_id is not None:
@@ -95,10 +258,319 @@ def generate(model, input_ids, attention_mask=None,
     for t in range(prompt_len + 1, total_len):
         logits = model(token[:, None], attention_mask=attention_mask,
                        position_ids=pos[:, None], cache=cache)
-        nxt = _select_token(logits[:, -1])
+        nxt = select(control(logits[:, -1], buf, t),
+                     draws.at(t - prompt_len))
         nxt = torch.where(finished, pad_token_id, nxt)
         if eos_token_id is not None:
             finished |= nxt == eos_token_id
         buf[:, t] = nxt
         token, pos = nxt, pos + 1
     return buf
+
+
+# -- speculative decoding -------------------------------------------------
+
+def _spec_dist(logits, temperature, top_k, top_p) -> torch.Tensor:
+    """The filtered distribution :func:`_select_token` draws from, as
+    fp32 probabilities (``:278``)."""
+    return torch.softmax(_filtered_logits(logits, temperature, top_k,
+                                          top_p), dim=-1)
+
+
+def _spec_round_tokens(t_logits, d_logits, d, rng: Optional[Draws], *,
+                       do_sample: bool, temperature: float = 1.0,
+                       top_k: int = 0, top_p: float = 0.0):
+    """One speculative round's accept/commit math (``:285``).
+
+    ``t_logits [B, g+1, V]``: target logits over ``[last, d_1..d_g]``;
+    ``d_logits [B, g, V]`` or None (greedy): draft logits for the
+    proposals ``d [B, g]``. Returns ``(n_r, w)``: per-row accepted-prefix
+    length and the ``[B, g+1]`` window (accepted proposals, then the
+    correction or resample at the first rejection, then the bonus token,
+    meaningful only on full acceptance).
+
+    Greedy: accept while the draft equals the target argmax; ``w`` is
+    the argmax. Sampling (the standard rejection scheme): accept d_i
+    with probability min(1, p_i(d_i) / q_i(d_i)); at the first rejection
+    resample from norm(max(0, p_i - q_i)); on full acceptance draw the
+    bonus from p_{g+1}. Each row draws under its own key in ``rng``, so
+    the same function serves a batch under one call seed and the serving
+    pool's per-lane keys."""
+    gamma = d.shape[1]
+    if not do_sample:
+        y = t_logits.float().argmax(-1)
+        m = d == y[:, :gamma]
+        n_r = torch.cumprod(m.long(), dim=1).sum(1)
+        return n_r, y
+    p = _spec_dist(t_logits, temperature, top_k, top_p)     # [B, g+1, V]
+    q = _spec_dist(d_logits, temperature, top_k, top_p)     # [B, g, V]
+    p_d = p[:, :gamma].gather(-1, d[..., None])[..., 0]
+    q_d = q.gather(-1, d[..., None])[..., 0]
+    # u < p/q without the division (q_d > 0: d was drawn from q)
+    u = rng.sub(STREAM_ACCEPT).uniform(gamma)
+    accept = u * q_d < p_d
+    n_r = torch.cumprod(accept.long(), dim=1).sum(1)
+    resid = torch.clamp(p[:, :gamma] - q, min=0.0)
+    norm = resid.sum(-1, keepdim=True)
+    # p == q empties the residual; rejection then has probability 0, but
+    # keep the draw away from log(0) rows as the reference does
+    resid = torch.where(norm > 0, resid / torch.clamp(norm, min=1e-20),
+                        p[:, :gamma])
+    resid_draws = rng.sub(STREAM_RESIDUAL)
+    resample = torch.stack(
+        [categorical(resid_draws.sub(i), torch.log(resid[:, i] + 1e-20))
+         for i in range(gamma)], dim=1)
+    bonus = categorical(rng.sub(STREAM_BONUS),
+                        torch.log(p[:, gamma] + 1e-20))
+    keep = torch.arange(gamma, device=d.device)[None] < n_r[:, None]
+    w = torch.cat([torch.where(keep, d, resample), bonus[:, None]], dim=1)
+    return n_r, w
+
+
+def _spec_round_tokens_lanes(t_logits, d_logits, d, keys: Optional[Draws],
+                             *, do_sample: bool, temperature: float = 1.0,
+                             top_k: int = 0, top_p: float = 0.0):
+    """The serving pool's per-lane form (``:340``): ``keys`` holds one
+    key per lane, so a lane's accept and resample draws depend only on
+    its request seed and tick. :func:`_spec_round_tokens` already draws
+    row by row, so this is the same implementation of the rule."""
+    if not do_sample:
+        return _spec_round_tokens(t_logits, None, d, None, do_sample=False)
+    if keys.keys.shape[0] != d.shape[0]:
+        raise ValueError(f"{keys.keys.shape[0]} lane keys for "
+                         f"{d.shape[0]} lanes")
+    return _spec_round_tokens(t_logits, d_logits, d, keys, do_sample=True,
+                              temperature=temperature, top_k=top_k,
+                              top_p=top_p)
+
+
+def _spec_early_return(input_ids, max_new_tokens, return_stats):
+    """Shared no-op path for max_new_tokens <= 0 (None = proceed)."""
+    if max_new_tokens > 0:
+        return None
+    return (input_ids, {"rounds": 0, "drafted": 0, "accepted": 0,
+                        "acceptance_rate": 0.0}) \
+        if return_stats else input_ids
+
+
+def _check_spec_cache_headroom(models, total_len, gamma, fn_name):
+    """The verify forward near the end writes cache entries up to index
+    ``total_len + gamma - 1``; a smaller cache would clamp the window's
+    start and corrupt committed entries, so refuse (``:373``)."""
+    for name, m in models:
+        max_len = getattr(getattr(m, "config", None),
+                          "max_position_embeddings", None)
+        if max_len is not None and max_len < total_len + gamma:
+            raise ValueError(
+                f"{fn_name}: {name}.config.max_position_embeddings="
+                f"{max_len} < prompt+max_new_tokens+gamma="
+                f"{total_len + gamma}; the speculation window needs "
+                "gamma extra cache slots")
+
+
+def _speculative_loop(model, input_ids, attention_mask, max_new_tokens,
+                      gamma, *, do_sample, temperature, top_k, top_p,
+                      eos_token_id, pad_token_id, seed, return_stats,
+                      propose, post_commit, extra_init):
+    """THE propose -> verify -> commit loop (``:390``), shared by
+    :func:`speculative_generate` and :func:`prompt_lookup_generate`.
+
+    ``propose(extra, buf, t, pos, last, r_draft) -> (extra, d,
+    d_logits)`` gives each round's ``[B, gamma]`` proposals (d_logits
+    None when greedy); ``post_commit(extra, n) -> extra`` runs after the
+    commit. Rows advance together by the minimum accepted length over
+    unfinished rows; draws of round ``r`` use draw counter ``r + 1``
+    (0 is the first token's)."""
+    dev = input_ids.device
+    batch, prompt_len = input_ids.shape
+    total_len = prompt_len + max_new_tokens
+    position_ids = position_ids_from_mask(attention_mask)
+    draws = Draws.for_rows(seed, batch, device=dev)
+
+    t_logits, t_cache = _prefill_cache(model, input_ids, attention_mask,
+                                       position_ids)
+    # slack columns keep the fixed-width window write in bounds near the
+    # end, as the reference's buffer does
+    buf = torch.full((batch, total_len + gamma + 1), pad_token_id,
+                     dtype=torch.long, device=dev)
+    buf[:, :prompt_len] = input_ids
+    first = _select_token(t_logits[:, -1], draws.sub(STREAM_TOKEN),
+                          do_sample, temperature, top_k, top_p)
+    buf[:, prompt_len] = first
+    finished = (first == eos_token_id) if eos_token_id is not None \
+        else torch.zeros(batch, dtype=torch.bool, device=dev)
+    last = torch.where(finished, pad_token_id, first)
+    pos = position_ids[:, -1] + 1
+    steps = torch.arange(gamma + 1, device=dev)[None]
+    extra = extra_init
+    t, rounds, accepted = prompt_len + 1, 0, 0
+    while t < total_len and not bool(finished.all()):
+        prev_finished = finished
+        tick = draws.at(rounds + 1)
+        extra, d, d_logits = propose(extra, buf, t, pos, last,
+                                     tick.sub(STREAM_DRAFT))
+        verify = torch.cat([last[:, None], d], dim=1)
+        logits = model(verify, attention_mask=attention_mask,
+                       position_ids=pos[:, None] + steps, cache=t_cache)
+        n_r, w = _spec_round_tokens(
+            logits, d_logits, d, tick.sub(STREAM_ROUND),
+            do_sample=do_sample, temperature=temperature, top_k=top_k,
+            top_p=top_p)
+        n_r = torch.where(finished, gamma, n_r)
+        n = int(n_r.min())
+        c = n + 1                   # committed this round (1..gamma+1)
+        if eos_token_id is not None:
+            is_eos = w == eos_token_id
+            after = F.pad(is_eos.long().cumsum(1)[:, :-1], (1, 0)) > 0
+            w = torch.where(after, pad_token_id, w)
+            finished = finished | (is_eos & (steps < c)).any(1)
+        w = torch.where(prev_finished[:, None], pad_token_id, w)
+        w = torch.where(steps < c, w, pad_token_id)
+        buf[:, t:t + gamma + 1] = w
+        last = w[:, c - 1]
+        # the target cache advanced gamma+1: keep it valid through the
+        # second-newest committed token
+        _rollback_cache(t_cache, gamma - n)
+        extra = post_commit(extra, n)
+        t, pos = t + c, pos + c
+        rounds, accepted = rounds + 1, accepted + n
+    out = buf[:, :total_len]
+    if return_stats:
+        drafted = rounds * gamma
+        return out, {"rounds": rounds, "drafted": drafted,
+                     "accepted": accepted,
+                     "acceptance_rate": accepted / max(drafted, 1)}
+    return out
+
+
+@torch.no_grad()
+def speculative_generate(model, draft_model, input_ids,
+                         attention_mask=None, max_new_tokens: int = 32,
+                         gamma: int = 4, do_sample: bool = False,
+                         temperature: float = 1.0, top_k: int = 0,
+                         top_p: float = 0.0,
+                         eos_token_id: Optional[int] = None,
+                         pad_token_id: int = 0, seed: int = 0,
+                         return_stats: bool = False, device=None):
+    """Speculative decoding (``:494``): each round ``draft_model``
+    proposes ``gamma`` tokens, the target scores ``[last, d_1..d_g]`` in
+    one forward, and the longest acceptable prefix commits plus one
+    correction. Greedy output is token-identical to greedy
+    :func:`generate`; sampled output follows the law of sampled
+    :func:`generate` (see :func:`_spec_round_tokens`). Both models must
+    live on the device."""
+    if gamma < 1:
+        raise ValueError("speculative decoding needs gamma >= 1")
+    dev, input_ids, attention_mask = _prepare(model, input_ids,
+                                              attention_mask, device)
+    check_module_device(draft_model, dev)
+    early = _spec_early_return(input_ids, max_new_tokens, return_stats)
+    if early is not None:
+        return early
+    prompt_len = input_ids.shape[1]
+    _check_spec_cache_headroom(
+        (("model", model), ("draft_model", draft_model)),
+        prompt_len + max_new_tokens, gamma, "speculative_generate")
+    _, d_cache = _prefill_cache(draft_model, input_ids, attention_mask,
+                                position_ids_from_mask(attention_mask))
+
+    def propose(d_cache, buf, t, pos, last, r_draft):
+        # gamma proposals, plus one more feed that keeps the draft cache
+        # aligned with the target on full acceptance
+        tok, props, steps = last, [], []
+        for i in range(gamma + 1):
+            logits = draft_model(tok[:, None], attention_mask=attention_mask,
+                                 position_ids=(pos + i)[:, None],
+                                 cache=d_cache)[:, -1]
+            tok = _select_token(logits, r_draft.sub(i), do_sample,
+                                temperature, top_k, top_p)
+            props.append(tok)
+            steps.append(logits)
+        d = torch.stack(props[:gamma], dim=1)
+        d_logits = torch.stack(steps[:gamma], dim=1) if do_sample else None
+        return d_cache, d, d_logits
+
+    return _speculative_loop(
+        model, input_ids, attention_mask, max_new_tokens, gamma,
+        do_sample=do_sample, temperature=temperature, top_k=top_k,
+        top_p=top_p, eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+        seed=seed, return_stats=return_stats, propose=propose,
+        post_commit=lambda d_cache, n: _rollback_cache(d_cache, gamma - n),
+        extra_init=d_cache)
+
+
+def _ngram_propose_lanes(buf, t, ngram, gamma, fallback):
+    """Prompt-lookup proposals with a cursor per row (``:622``): find an
+    earlier occurrence of the ``ngram``-token suffix ending at ``t[b]``
+    (exclusive) in row ``b`` of ``buf`` and propose the ``gamma`` tokens
+    that followed it. The latest match whose whole continuation lies
+    inside the committed region wins, else the latest partial match; a
+    row with no match proposes ``fallback[b]`` repeated. ``t`` and
+    ``fallback`` are ``[B]`` tensors."""
+    batch, width = buf.shape
+    dev = buf.device
+    t = torch.as_tensor(t, device=dev).long().reshape(batch)
+    # the suffix slice clamps its start as dynamic_slice does
+    start = (t - ngram).clamp(0, width - ngram)
+    suffix = buf.gather(1, start[:, None] +
+                        torch.arange(ngram, device=dev)[None])
+    windows = buf.unfold(1, ngram, 1)               # [B, W-ngram+1, ngram]
+    match = (windows == suffix[:, None, :]).all(-1)
+    pos = torch.arange(width - ngram + 1, device=dev)[None]
+    # the continuation must start strictly inside the committed region
+    match = match & (pos + ngram < t[:, None])
+    fits = match & (pos + ngram + gamma <= t[:, None])
+    none = torch.tensor(-1, device=dev)
+    j_fit = torch.where(fits, pos, none).max(1).values
+    j_any = torch.where(match, pos, none).max(1).values
+    j = torch.where(j_fit >= 0, j_fit, j_any)       # [B], -1 = none
+    idx = (j[:, None] + ngram + torch.arange(gamma, device=dev)[None]
+           ).clamp(0, width - 1)
+    d = buf.gather(1, idx)
+    fallback = torch.as_tensor(fallback, device=dev).long().reshape(-1, 1)
+    return torch.where((j >= 0)[:, None], d, fallback.expand(batch, 1))
+
+
+def _ngram_propose(buf, t, ngram, gamma, pad_token_id):
+    """Prompt-lookup proposals at one cursor ``t`` for every row
+    (``:592``); rows with no match propose pads."""
+    batch = buf.shape[0]
+    return _ngram_propose_lanes(
+        buf, torch.full((batch,), int(t), dtype=torch.long,
+                        device=buf.device), ngram, gamma,
+        torch.full((batch,), pad_token_id, dtype=torch.long,
+                   device=buf.device))
+
+
+@torch.no_grad()
+def prompt_lookup_generate(model, input_ids, attention_mask=None,
+                           max_new_tokens: int = 32, gamma: int = 4,
+                           ngram: int = 2,
+                           eos_token_id: Optional[int] = None,
+                           pad_token_id: int = 0,
+                           return_stats: bool = False, device=None):
+    """Draft-free speculative decoding (``:637``): propose the
+    continuation of the latest earlier occurrence of the current
+    ``ngram``-token suffix and verify it with one target forward.
+    Token-identical to greedy :func:`generate`."""
+    if gamma < 1 or ngram < 1:
+        raise ValueError("prompt lookup needs gamma >= 1 and ngram >= 1")
+    dev, input_ids, attention_mask = _prepare(model, input_ids,
+                                              attention_mask, device)
+    early = _spec_early_return(input_ids, max_new_tokens, return_stats)
+    if early is not None:
+        return early
+    _check_spec_cache_headroom(
+        (("model", model),), input_ids.shape[1] + max_new_tokens, gamma,
+        "prompt_lookup_generate")
+
+    def propose(extra, buf, t, pos, last, r_draft):
+        return extra, _ngram_propose(buf, t, ngram, gamma,
+                                     pad_token_id), None
+
+    return _speculative_loop(
+        model, input_ids, attention_mask, max_new_tokens, gamma,
+        do_sample=False, temperature=1.0, top_k=0, top_p=0.0,
+        eos_token_id=eos_token_id, pad_token_id=pad_token_id, seed=0,
+        return_stats=return_stats, propose=propose,
+        post_commit=lambda extra, n: extra, extra_init=())

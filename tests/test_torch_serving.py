@@ -17,6 +17,16 @@
   int8 round-trip noise).
 - ``BlockAllocator`` accounting, the engine's config gates, and one
   HTTP round trip through ``build_stdlib_server`` on ``127.0.0.1:0``.
+- Speculative serving (``prompt_lookup`` and ``self_draft``; slot and
+  paged; fp32 and int8 pools) against the port's non-spec engine and the
+  JAX package's spec engine, token for token, with staggered admission
+  and eos; the gamma headroom at admission, the paged charge, a tight
+  pool, the ``/stats`` keys (mirroring ``tests/test_serving_spec.py``);
+  ``EngineConfig`` raising where the reference's raises.
+- Sampling: a lane's tokens depend only on the engine seed and its
+  request seed (or id), never on its slot, admission order or
+  co-tenants; the logits controls against the JAX engine; sampling and
+  spec settings from a server config file over HTTP.
 """
 
 import functools
@@ -373,9 +383,20 @@ def test_engine_backpressure_and_config_gates(port_model):
         eng.submit(np.arange(3, 6))
     with pytest.raises(ValueError):
         eng.submit(np.arange(3, 6), max_new_tokens=0)
+    # sampling, the controls and both speculative modes construct; the
+    # reference's ValueErrors hold
     for kw in (dict(spec_mode="prompt_lookup"), dict(do_sample=True),
-               dict(repetition_penalty=1.2), dict(min_length=3)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+               dict(repetition_penalty=1.2), dict(min_length=3),
+               dict(spec_mode="self_draft", do_sample=True, top_k=5)):
+        cfg = EngineConfig(**kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
+    for kw, match in ((dict(spec_mode="prompt_lookup", do_sample=True),
+                       "greedy-only"),
+                      (dict(spec_mode="self_draft", min_length=3),
+                       "logits controls"),
+                      (dict(spec_mode="prompt_lookup", spec_gamma=0),
+                       "spec_gamma")):
+        with pytest.raises(ValueError, match=match):
             EngineConfig(**kw)
     assert EngineConfig(kv_dtype="int8").kv_dtype == "int8"
     with pytest.raises(ValueError):
@@ -387,8 +408,9 @@ def test_engine_backpressure_and_config_gates(port_model):
 def test_reference_config_fields_all_load():
     """Every field of the reference's ``EngineConfig`` and
     ``ServerConfig`` is a field of the port's; the reference's defaults
-    load, and a value other than the default of a feature the port lacks
-    raises ``NotImplementedError`` (never ``TypeError``)."""
+    load, the speculative knobs load at any valid value, and a value
+    other than the default of a feature the port lacks raises
+    ``NotImplementedError`` (never ``TypeError``)."""
     import dataclasses
 
     from fengshen_tpu.api.main import ServerConfig as JaxServerConfig
@@ -403,8 +425,9 @@ def test_reference_config_fields_all_load():
     defaults.pop("engine")                  # the reference's is "simple"
     ServerConfig(**defaults)
     for kw in (dict(spec_gamma=6), dict(spec_ngram=3),
-               dict(spec_draft_layers=4), dict(debug_ring=8),
-               dict(journal_ring=16)):
+               dict(spec_draft_layers=4)):
+        assert dataclasses.asdict(EngineConfig(**kw)).items() >= kw.items()
+    for kw in (dict(debug_ring=8), dict(journal_ring=16)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             EngineConfig(**kw)
     for kw in (dict(phase="prefill"), dict(drain_timeout_s=5.0),
@@ -589,3 +612,358 @@ def test_main_serves_from_a_config(tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+# -- speculative serving (mirroring tests/test_serving_spec.py) ------------
+
+SPEC_MODES = {"prompt_lookup": dict(spec_mode="prompt_lookup", spec_gamma=4),
+              "self_draft": dict(spec_mode="self_draft", spec_gamma=4,
+                                 spec_draft_layers=1)}
+SPEC_POOLS = {"slot-fp32": {}, "paged-fp32": dict(kv_layout="paged",
+                                                  kv_block_size=8),
+              "slot-int8": dict(kv_dtype="int8"),
+              "paged-int8": dict(kv_layout="paged", kv_block_size=8,
+                                 kv_dtype="int8")}
+
+
+def _rep_prompts(n, length, seed=0):
+    """Short-period prompts: the workload lookup drafts for."""
+    rng = np.random.RandomState(seed)
+    return [np.tile(rng.randint(3, 96, 3).astype(np.int32),
+                    length)[:length] for _ in range(n)]
+
+
+def _staggered(eng, prompts):
+    """Two requests, three ticks, then the rest (slot reclaim on the way)."""
+    reqs = [eng.submit(p) for p in prompts[:2]]
+    for _ in range(3):
+        eng.step()
+    reqs += [eng.submit(p) for p in prompts[2:]]
+    eng.run_until_idle()
+    return [r.tokens for r in reqs]
+
+
+@pytest.fixture(scope="module")
+def spec_workload(port_refs):
+    """Prompts of both buckets plus repetitive ones, and an eos that the
+    greedy stream of prompt 1 meets at its fourth token."""
+    return _prompts() + _rep_prompts(2, 14, seed=2), port_refs[1][3]
+
+
+@pytest.mark.parametrize("pool", list(SPEC_POOLS))
+@pytest.mark.parametrize("mode", list(SPEC_MODES))
+def test_spec_engine_matches_jax_and_nonspec(jax_side, port_model,
+                                             spec_workload, mode, pool):
+    """Both speculative modes, every pool: the port's spec engine serves
+    the port's non-spec engine's tokens and the JAX spec engine's, with
+    staggered admission, slot reclaim and eos inside a window."""
+    from fengshen_tpu.serving import ContinuousBatchingEngine as JaxEngine
+    from fengshen_tpu.serving import EngineConfig as JaxEngineConfig
+    prompts, eos = spec_workload
+    kw = dict(num_slots=2, buckets=(8, 16), max_new_tokens=MAX_NEW,
+              max_queue=16, eos_token_id=eos, **SPEC_POOLS[pool])
+    spec = ContinuousBatchingEngine(
+        port_model, EngineConfig(**kw, **SPEC_MODES[mode]), device="cpu")
+    served = _staggered(spec, prompts)
+    base = _staggered(ContinuousBatchingEngine(
+        port_model, EngineConfig(**kw), device="cpu"), prompts)
+    assert served == base
+    jax_model = JaxLlama(JaxLlamaConfig(**CFG))
+    want = _staggered(JaxEngine(jax_model, jax_side[0], JaxEngineConfig(
+        **kw, **SPEC_MODES[mode])), prompts)
+    assert served == want
+    assert served[1][-1] == eos and len(served[1]) == 4
+    st = spec.stats()
+    assert st["completed"] == len(prompts) and st["slots_active"] == 0
+    assert st["spec_mode"] == mode and st["kv_blocks_used"] == 0
+
+
+def test_spec_engine_accepts_drafts_on_repetitive_prompts(port_model):
+    """Lookup proposals are accepted on looping text (else the parity
+    above would be all corrections); fewer verify ticks than tokens."""
+    prompts = _rep_prompts(3, 14, seed=2)
+    refs = [generate(port_model, p[None], max_new_tokens=24,
+                     device="cpu")[0, len(p):].tolist() for p in prompts]
+    eng = ContinuousBatchingEngine(
+        port_model, EngineConfig(num_slots=3, buckets=(16,),
+                                 max_new_tokens=24, max_queue=8,
+                                 **SPEC_MODES["prompt_lookup"]),
+        device="cpu")
+    assert eng.generate_all(prompts) == refs
+    st = eng.stats()
+    assert st["spec_accepted_total"] > 0
+    assert 0.0 < st["spec_acceptance_rate"] <= 1.0
+    assert st["decode_ticks"] < st["decode_tokens"]
+
+
+def test_spec_headroom_boundary_rejects_413(port_model):
+    """Capacity 64, bucket 60, gamma 4: no decode room, so the spec engine
+    answers 413 where the non-spec engine admits; one bucket lower the
+    spec engine clamps max_new to 64 - 56 - 4 = 4 (``:212``)."""
+    lookup = SPEC_MODES["prompt_lookup"]
+    prompt = _prompts((58,), seed=5)[0]
+    kw = dict(num_slots=1, buckets=(8, 56, 60), max_new_tokens=8,
+              max_queue=4)
+    eng = ContinuousBatchingEngine(port_model, EngineConfig(**kw, **lookup),
+                                   device="cpu")
+    with pytest.raises(PromptTooLong, match="gamma=4"):
+        eng.submit(prompt)
+    assert eng.stats()["rejected_prompt_too_long"] == 1
+    off = ContinuousBatchingEngine(port_model, EngineConfig(**kw),
+                                   device="cpu")
+    req = off.submit(prompt)
+    off.run_until_idle()
+    assert req.state == "finished"
+    short = _prompts((50,), seed=6)[0]
+    req = eng.submit(short, max_new_tokens=8)
+    eng.run_until_idle()
+    assert req.state == "finished"
+    assert req.tokens == generate(port_model, short[None], max_new_tokens=4,
+                                  device="cpu")[0, 50:].tolist()
+    with pytest.raises(ValueError, match="gamma=4"):
+        ContinuousBatchingEngine(port_model, EngineConfig(
+            buckets=(60,), **lookup), device="cpu")
+
+
+def test_spec_paged_charge_includes_gamma(port_model):
+    """ceil((bucket 8 + max_new 8 + gamma 4) / 16) = 2 blocks, where the
+    non-spec charge is 1 (``:241``); a pool of one usable block rejects
+    the spec request at submit and serves the non-spec one."""
+    kw = dict(num_slots=2, buckets=(8,), max_new_tokens=8, max_queue=8,
+              kv_layout="paged", kv_block_size=16)
+    for spec, want in ((SPEC_MODES["prompt_lookup"], 2), ({}, 1)):
+        eng = ContinuousBatchingEngine(
+            port_model, EngineConfig(**kw, kv_num_blocks=6, **spec),
+            device="cpu")
+        eng.submit(_prompts((6,), seed=7)[0])
+        eng.step()
+        assert eng.stats()["kv_blocks_used"] == want
+    eng = ContinuousBatchingEngine(
+        port_model, EngineConfig(**kw, kv_num_blocks=2,
+                                 **SPEC_MODES["self_draft"]), device="cpu")
+    with pytest.raises(PromptTooLong, match="KV blocks"):
+        eng.submit(_prompts((6,))[0])
+
+
+@pytest.mark.parametrize("mode", list(SPEC_MODES))
+def test_spec_paged_tight_pool_no_cross_lane_corruption(port_model, mode):
+    """Three lanes on a pool of exactly their charged blocks (3 each of
+    8 tokens): a rejected tail written across a block edge into a
+    neighbour's block would change its tokens (``:265``)."""
+    prompts = _rep_prompts(3, 8, seed=8)
+    refs = [generate(port_model, p[None], max_new_tokens=12,
+                     device="cpu")[0, 8:].tolist() for p in prompts]
+    eng = ContinuousBatchingEngine(
+        port_model, EngineConfig(num_slots=3, buckets=(8,),
+                                 max_new_tokens=12, max_queue=8,
+                                 kv_layout="paged", kv_block_size=8,
+                                 kv_num_blocks=10, **SPEC_MODES[mode]),
+        device="cpu")
+    assert eng.generate_all(prompts) == refs
+    assert eng.stats()["kv_blocks_used"] == 0
+
+
+SPEC_STATS = {"spec_mode", "spec_gamma", "spec_drafted_total",
+              "spec_accepted_total", "spec_acceptance_rate"}
+
+
+def test_spec_stats_keys_and_nonspec_shape_unchanged(port_model):
+    """The spec engine's /stats is the non-spec payload plus exactly the
+    five spec keys (``:329``); the non-spec payload has none of them."""
+    kw = dict(num_slots=2, buckets=(16,), max_new_tokens=16, max_queue=4)
+    prompts = _rep_prompts(2, 12, seed=9)
+    off = ContinuousBatchingEngine(port_model, EngineConfig(**kw),
+                                   device="cpu")
+    off.generate_all(prompts)
+    spec = ContinuousBatchingEngine(
+        port_model, EngineConfig(**kw, **SPEC_MODES["prompt_lookup"]),
+        device="cpu")
+    spec.generate_all(prompts)
+    plain, st = off.stats(), spec.stats()
+    assert not SPEC_STATS & set(plain)
+    assert set(st) == set(plain) | SPEC_STATS
+    assert st["spec_mode"] == "prompt_lookup" and st["spec_gamma"] == 4
+    assert st["spec_drafted_total"] > 0
+    assert 0 <= st["spec_accepted_total"] <= st["spec_drafted_total"]
+    assert st["spec_acceptance_rate"] == pytest.approx(
+        st["spec_accepted_total"] / st["spec_drafted_total"])
+
+
+CONFIG_GRID = [dict(), dict(do_sample=True, top_k=4),
+               dict(spec_mode="prompt_lookup"),
+               dict(spec_mode="prompt_lookup", do_sample=True),
+               dict(spec_mode="self_draft", do_sample=True, top_p=0.9),
+               dict(spec_mode="self_draft", spec_draft_layers=0),
+               dict(spec_mode="prompt_lookup", spec_ngram=0),
+               dict(spec_mode="self_draft", spec_gamma=0),
+               dict(spec_mode="prompt_lookup", repetition_penalty=1.2),
+               dict(spec_mode="self_draft", no_repeat_ngram_size=1),
+               dict(spec_mode="prompt_lookup", min_length=4),
+               dict(repetition_penalty=1.2, no_repeat_ngram_size=1,
+                    min_length=4, do_sample=True),
+               dict(no_repeat_ngram_size=2), dict(spec_mode="lookup"),
+               dict(spec_mode="off", spec_gamma=0)]
+
+
+@pytest.mark.parametrize("kw", CONFIG_GRID, ids=str)
+def test_engine_config_validates_as_the_reference(kw):
+    """Wherever the reference's ``EngineConfig`` constructs the port's
+    does, and wherever it raises ``ValueError`` the port's raises it."""
+    from fengshen_tpu.serving import EngineConfig as JaxEngineConfig
+    try:
+        JaxEngineConfig(**kw)
+    except ValueError:
+        with pytest.raises(ValueError):
+            EngineConfig(**kw)
+    else:
+        EngineConfig(**kw)
+
+
+# -- sampling and the logits controls -----------------------------------------
+
+SAMPLED = {"off": dict(do_sample=True, temperature=0.8, top_k=6),
+           "self_draft": dict(do_sample=True, temperature=0.8, top_p=0.9,
+                              **SPEC_MODES["self_draft"])}
+
+
+@pytest.mark.parametrize("mode", list(SAMPLED))
+def test_sampled_lane_is_pure(port_model, mode):
+    """A lane's sampled tokens depend only on the engine seed and the
+    request's seed: served alone in one slot, or among others in another
+    slot and admitted in another order (paged, reversed, staggered), the
+    request draws the same tokens; an explicit seed is the id's default
+    and another seed draws others."""
+    prompts = _prompts() + _rep_prompts(2, 14, seed=3)
+    ids = [f"r{i}" for i in range(len(prompts))]
+    kw = dict(buckets=(8, 16), max_new_tokens=MAX_NEW, max_queue=16,
+              seed=3, **SAMPLED[mode])
+    crowd = ContinuousBatchingEngine(
+        port_model, EngineConfig(num_slots=3, **kw), device="cpu")
+    reqs = {i: crowd.submit(p, request_id=i) for i, p in zip(ids, prompts)}
+    crowd.run_until_idle()
+    served = {i: r.tokens for i, r in reqs.items()}
+    assert len({tuple(t) for t in served.values()}) == len(prompts)
+    paged = ContinuousBatchingEngine(
+        port_model, EngineConfig(num_slots=2, kv_layout="paged",
+                                 kv_block_size=8, **kw), device="cpu")
+    late = {}
+    for i, p in reversed(list(zip(ids, prompts))):
+        late[i] = paged.submit(p, request_id=i)
+        paged.step()
+    paged.run_until_idle()
+    assert {i: r.tokens for i, r in late.items()} == served
+    alone = ContinuousBatchingEngine(
+        port_model, EngineConfig(num_slots=1, **kw), device="cpu")
+    import zlib
+    seeded = alone.submit(prompts[4],
+                          seed=zlib.crc32(ids[4].encode()) & 0x7FFFFFFF)
+    other = alone.submit(prompts[4], seed=12345)
+    alone.run_until_idle()
+    assert seeded.tokens == served[ids[4]]
+    assert other.tokens != served[ids[4]]
+
+
+def test_sampled_tokens_lie_in_the_top_k(port_model):
+    """Every sampled token is among its step's top-k logits (re-scored by
+    one cacheless forward over the bucket-padded sequence)."""
+    from fengshen_tpu_torch.serving import BucketLadder
+    eng = ContinuousBatchingEngine(
+        port_model, EngineConfig(num_slots=2, buckets=(16,),
+                                 max_new_tokens=MAX_NEW, **SAMPLED["off"]),
+        device="cpu")
+    prompts = _prompts()
+    ladder = BucketLadder((16,))
+    for prompt, tokens in zip(prompts, eng.generate_all(prompts)):
+        row, mask = ladder.pad_prompt(prompt, 16)
+        ids = torch.tensor(list(row) + tokens[:-1])[None]
+        m = torch.tensor(list(mask) + [1] * (len(tokens) - 1))[None]
+        with torch.no_grad():
+            logits = port_model(ids, attention_mask=m,
+                                position_ids=(m.cumsum(-1) - 1).clamp(
+                                    min=0))[0, 15:]
+        kth = logits.topk(6, dim=-1).values[:, -1]
+        chosen = logits.gather(1, torch.tensor(tokens)[:, None])[:, 0]
+        assert bool((chosen >= kth - 1e-5).all())
+
+
+@pytest.mark.parametrize("controls", [
+    dict(repetition_penalty=1.8), dict(no_repeat_ngram_size=1),
+    dict(min_length=24, eos_token_id=None),
+    dict(repetition_penalty=1.3, no_repeat_ngram_size=1)], ids=str)
+def test_controls_engine_matches_jax_engine(jax_side, port_model,
+                                            port_refs, controls):
+    """The logits controls in the engine (per-lane history, cursors and
+    left-padded prompt masks) serve the JAX engine's tokens; min_length
+    holds eos off until the full sequence reaches it."""
+    from fengshen_tpu.serving import ContinuousBatchingEngine as JaxEngine
+    from fengshen_tpu.serving import EngineConfig as JaxEngineConfig
+    controls = dict(controls)
+    if "eos_token_id" in controls:
+        controls["eos_token_id"] = port_refs[1][1]
+    kw = dict(num_slots=2, buckets=(8, 16), max_new_tokens=MAX_NEW,
+              max_queue=16, **controls)
+    prompts = _prompts() + _rep_prompts(1, 14, seed=2)
+    served = _staggered(ContinuousBatchingEngine(
+        port_model, EngineConfig(**kw), device="cpu"), prompts)
+    want = _staggered(JaxEngine(JaxLlama(JaxLlamaConfig(**CFG)),
+                                jax_side[0], JaxEngineConfig(**kw)),
+                      prompts)
+    assert served == want
+    if "min_length" in controls:
+        assert served[1] != port_refs[1]
+    if controls.get("no_repeat_ngram_size") == 1:
+        for prompt, tokens in zip(prompts, served):
+            assert not set(tokens) & set(prompt.tolist())
+            assert len(set(tokens)) == len(tokens)
+
+
+def test_sampled_spec_served_from_a_config_over_http(tmp_path, jax_side):
+    """PIPELINE sampling settings and ENGINE spec fields from a server
+    config file reach the engine; a request's ``request_id`` sets its
+    seed, so the same id draws the same tokens; /stats shows the spec
+    section."""
+    from fengshen_tpu_torch.api.main import (_resolve_pipeline,
+                                             create_continuous_engine,
+                                             load_config)
+    LlamaConfig(**CFG).save_pretrained(str(tmp_path / "model"))
+    path = tmp_path / "server.json"
+    path.write_text(json.dumps({
+        "SERVER": {"host": "127.0.0.1", "port": 0, "device": "cpu"},
+        "ENGINE": {"num_slots": 2, "buckets": [16], "spec_mode":
+                   "self_draft", "spec_gamma": 3, "spec_draft_layers": 1},
+        "PIPELINE": {"task": "text_generation",
+                     "model": str(tmp_path / "model"), "seed": 3,
+                     "max_new_tokens": 8, "do_sample": True,
+                     "temperature": 0.7, "top_k": 5}}))
+    server_cfg, pipe_cfg = load_config(str(path))
+    pipe = _resolve_pipeline(pipe_cfg, server_cfg.device)
+    engine = create_continuous_engine(pipe, server_cfg.engine_args)
+    cfg = engine.config
+    assert (cfg.do_sample, cfg.top_k, cfg.temperature, cfg.seed) == \
+        (True, 5, 0.7, 3)
+    assert (cfg.spec_mode, cfg.spec_gamma) == ("self_draft", 3)
+    engine.warmup()
+    engine.start()
+    server = build_stdlib_server(server_cfg, pipe_cfg, pipeline=pipe,
+                                 engine=engine)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        text = " ".join(map(str, _prompts()[2]))
+        a = _post(port, {"input_text": text, "request_id": "same"})
+        b = _post(port, {"input_text": text, "request_id": "same"})
+        c = _post(port, {"input_text": text, "request_id": "other"})
+        assert a["result"] == b["result"] != c["result"]
+        assert a["generated_tokens"] == 8
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=10) as r:
+            stats = json.loads(r.read())
+        assert stats["spec_mode"] == "self_draft"
+        assert stats["spec_drafted_total"] > 0
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
