@@ -50,6 +50,26 @@ Phases (each raises on failure, so any failure exits non-zero):
    per layer per verify tick, s1 per draft layer per draft step); a
    verify that accepts one draft too many, a rollback that skips a
    lane and a sampler that ignores top_k must each fail their bar;
+4c. (after 5b) the serving surface, on the same 40-layer bf16 model
+   and a paged pool:
+   8 concurrent SSE streams over the phase-4 prompts, equal to the
+   blocking route's tokens (time to the first ``token`` event printed);
+   a client that drops after 10 tokens and reconnects with
+   ``Last-Event-ID`` (gapless); ``/partial/<id>`` mid-stream and at the
+   end; two ``resume_tokens`` resubmissions (tail identical, or parting
+   only at a near-tie of the teacher-forced forward within TF_MARGIN);
+   ``/metrics`` counters against ``/stats``; ``POST /debug/dump``; the
+   drain with 8 requests in flight (they finish, a new POST and
+   ``/healthz`` answer 503 draining, the server stops); one request
+   through the ``simple`` engine (the continuous engine's tokens, or
+   parting only at such a near-tie); K3's launches pinned as in phase 4
+   (one per layer per tick; 40 per decode step of the simple engine);
+4d. checkpoint round trip: a 2-layer model at Ziya width (bf16, untied
+   head, ~2.1 GB) written as two safetensors shards, loaded with
+   ``Pipeline(model=dir, tokenizer=IdTokenizer(), device="cuda")`` (load
+   seconds and GiB read printed), every parameter bitwise equal to the
+   model written, and both served on the 8 prompts through K3 with equal
+   tokens;
 6. profile: a few decode ticks under ``torch.profiler``, over a bf16
    and over an int8 paged pool (device busy and idle share per tick,
    K3's time and share of it, the kernels that take the time);
@@ -106,6 +126,7 @@ import tempfile
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -307,6 +328,8 @@ def graph_ms(fn, iters: int) -> float:
 # -- phase 1 ------------------------------------------------------------
 
 def phase_device():
+    import importlib.util
+
     import torch
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -317,7 +340,9 @@ def phase_device():
     say("device", torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0], name=torch.cuda.get_device_name(0),
         capability=torch.cuda.get_device_capability(0),
-        count=torch.cuda.device_count(), nvidia_smi=card)
+        count=torch.cuda.device_count(), nvidia_smi=card,
+        packages={m: importlib.util.find_spec(m) is not None for m in
+                  ("transformers", "safetensors", "sentencepiece")})
     return card
 
 
@@ -1687,6 +1712,372 @@ def phase_spec_serving(model, pipe, card):
     return verify
 
 
+# -- phase 4c -----------------------------------------------------------
+
+def sse_post(port: int, payload: dict, headers=None, limit=None) -> tuple:
+    """POST to the stream route; returns (tokens, frames, seconds to the
+    first ``token`` frame). With ``limit`` the client drops the
+    connection after that many token frames."""
+    from fengshen_tpu_torch.streaming import iter_sse
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/api/text_generation/stream",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    frames, first = [], None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for frame in iter_sse(r):
+            if frame["event"] == "token" and first is None:
+                first = time.perf_counter() - t0
+            frames.append(frame)
+            if limit is not None and len(frames) == limit:
+                break
+    toks = [f for f in frames if f["event"] == "token"]
+    if toks and [f["id"] for f in toks] != list(
+            range(toks[0]["id"], toks[0]["id"] + len(toks))):
+        raise AssertionError(f"stream ids have a gap: "
+                             f"{[f['id'] for f in toks]}")
+    return [f["data"]["token"] for f in toks], frames, first
+
+
+def http_json(port: int, path: str, payload=None) -> tuple:
+    """(status, parsed body) of a GET (``payload`` None) or POST."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, raw, ctype = r.status, r.read(), r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        code, raw, ctype = e.code, e.read(), e.headers["Content-Type"]
+    return code, (json.loads(raw) if "json" in ctype else raw.decode())
+
+
+def near_tie(model, prompt, want, got) -> dict:
+    """Where two greedy sequences for ``prompt`` part: None when equal;
+    else the first differing position and the top-2 gap there of one
+    cacheless forward over ``want`` (the engine's bucket padding), and
+    whether it is within TF_MARGIN (a near-tie that bf16 rounding of two
+    computation orders may flip; a fault flips confident tokens)."""
+    import torch
+    t = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+             None)
+    if t is None and len(want) == len(got):
+        return None
+    if t is None:
+        return {"position": min(len(want), len(got)), "gap": None,
+                "ok": False}
+    with torch.no_grad():
+        pred, _ = rescored(model, prompt, list(want))
+    top2 = pred[t].topk(2).values
+    gap = float(top2[0] - top2[1])
+    return {"position": t, "gap": gap, "ok": gap <= TF_MARGIN}
+
+
+def phase_serving_surface(model, pipe, prompts, runs, card):
+    """The server as users run it, on the 40-layer bf16 pipe of phase 4
+    (paged pool, 8 slots): the stream route, a reconnect, the journal,
+    resume, /metrics against /stats, a flight-recorder bundle, the drain,
+    and the simple engine. Returns the K3 launches of its runs."""
+    import torch
+    from fengshen_tpu_torch.api.main import (PipelineConfig, ServerConfig,
+                                             SimpleEngine,
+                                             build_stdlib_server,
+                                             create_continuous_engine,
+                                             drain)
+    from fengshen_tpu_torch.observability import FlightRecorder
+    from fengshen_tpu_torch.ops.kernels import (get_entry,
+                                                reset_launch_counts)
+    entry = get_entry("decode_attention")
+    layers = model.config.num_hidden_layers
+    want = runs["paged"]
+    texts = [" ".join(map(str, p)) for p in prompts]
+    checks, failures = {}, []
+
+    def check(name, ok, **detail):
+        checks[name] = bool(ok)
+        if not ok:
+            failures.append(f"{name}: {detail}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        recorder = FlightRecorder(dump_dir=tmp)
+        engine = create_continuous_engine(
+            pipe, {"num_slots": 8, "kv_layout": "paged", "max_queue": 16},
+            recorder=recorder)
+        engine.warmup()
+        engine.start()
+        ready, draining = threading.Event(), threading.Event()
+        ready.set()
+        server = build_stdlib_server(
+            ServerConfig(host="127.0.0.1", port=0, engine="continuous",
+                         dump_dir=tmp), PipelineConfig(), pipeline=pipe,
+            engine=engine, ready=ready, recorder=recorder,
+            draining=draining)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            before = engine.stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(len(texts)) as pool:
+                streams = list(pool.map(lambda i: sse_post(port, {
+                    "input_text": texts[i], "max_new_tokens": NEW_TOKENS,
+                    "request_id": f"stream-{i}"}), range(len(texts))))
+            stream_s = time.perf_counter() - t0
+            ttft = [s[2] for s in streams]
+            check("stream_equals_blocking",
+                  [s[0] for s in streams] == want,
+                  parted=[near_tie(model, p, w, s[0]) for p, w, s in
+                          zip(prompts, want, streams)])
+            check("stream_done_events", all(
+                s[1][-1]["event"] == "done" and
+                s[1][-1]["id"] == NEW_TOKENS for s in streams))
+            # a client that drops after 10 tokens, reads the journal,
+            # and reconnects with Last-Event-ID 9
+            head, _, _ = sse_post(port, {"input_text": texts[3],
+                                         "max_new_tokens": NEW_TOKENS,
+                                         "request_id": "reconnect"},
+                                  limit=10)
+            code, mid = http_json(port, "/partial/reconnect")
+            tail, frames, _ = sse_post(port, {"request_id": "reconnect"},
+                                       headers={"Last-Event-ID": "9"})
+            check("reconnect_gapless", head + tail == want[3] and
+                  frames[0]["id"] == 10, head=len(head), tail=len(tail))
+            check("partial_mid_stream", code == 200 and
+                  mid["tokens"] == want[3][:len(mid["tokens"])] and
+                  len(mid["tokens"]) >= 10, partial=mid)
+            code, done = http_json(port, "/partial/reconnect")
+            check("partial_equals_committed", code == 200 and
+                  done["tokens"] == head + tail and
+                  done["state"] == "finished" and
+                  done["result"] == " ".join(map(str, want[3])))
+            # resume prompts 1 and 5 from their first 12 tokens
+            resumed = {}
+            for i in (1, 5):
+                code, body = http_json(port, "/api/text_generation", {
+                    "input_text": texts[i], "max_new_tokens": NEW_TOKENS,
+                    "resume_tokens": want[i][:12],
+                    "request_id": f"resume-{i}"})
+                got = [int(t) for t in body["result"].split()]
+                resumed[i] = near_tie(model, prompts[i], want[i], got)
+                if code != 200 or (resumed[i] is not None and
+                                   not resumed[i]["ok"]):
+                    failures.append(f"resume {i}: {code} {resumed[i]}")
+            checks["resume_tail_identical"] = all(
+                v is None for v in resumed.values())
+            checks["resume_within_near_tie_bar"] = all(
+                v is None or v["ok"] for v in resumed.values())
+            stats = engine.stats()
+            _, text = http_json(port, "/metrics")
+            samples = {}
+            for line in text.splitlines():
+                if line and not line.startswith("#"):
+                    key, _, value = line.rpartition(" ")
+                    samples[key] = float(value)
+            agree = {
+                "admitted": "fstpu_serving_admitted_total",
+                "completed": "fstpu_serving_completed_total",
+                "decode_ticks": "fstpu_serving_decode_ticks_total",
+                "decode_tokens": "fstpu_serving_decode_tokens_total",
+                "rejected_duplicate":
+                    "fstpu_serving_rejected_duplicate_total"}
+            check("metrics_agree_with_stats", all(
+                samples.get(m) == stats[k] for k, m in agree.items()),
+                  stats={k: stats[k] for k in agree},
+                  metrics={m: samples.get(m) for m in agree.values()})
+            code, dumped = http_json(port, "/debug/dump", {})
+            bundle = Path(dumped["bundle"]) if code == 200 else None
+            check("debug_dump_bundle", bundle is not None and
+                  (bundle / "engine.json").is_file() and
+                  (bundle / "manifest.json").is_file(), code=code)
+            code, debug = http_json(port, "/debug/requests/resume-1")
+            check("debug_timeline", code == 200 and
+                  debug["events"][0]["event"] == "enqueued" and
+                  debug["events"][-1]["event"] == "finished")
+            # the drain: 8 requests in flight, then the handler's body
+            t_drain = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(len(texts)) as pool:
+                base = sum(engine.stats()["prefills_per_bucket"].values())
+                inflight = [pool.submit(post, port, t) for t in texts]
+                # every request prefilled into a lane (none queued)
+                deadline = time.monotonic() + 120
+                while sum(engine.stats()["prefills_per_bucket"].values()) \
+                        < base + len(texts) and time.monotonic() < deadline:
+                    time.sleep(0.005)
+                busy = engine.stats()["slots_active"]
+                waiter = drain(server, draining, engine=engine,
+                               recorder=recorder)
+                refused = http_json(port, "/api/text_generation",
+                                    {"input_text": texts[0]})
+                health = http_json(port, "/healthz")
+                results = [f.result() for f in inflight]
+            waiter.join(timeout=120)
+            thread.join(timeout=30)
+            drain_s = time.perf_counter() - t_drain
+            check("drain_in_flight_finish", busy > 0 and all(
+                r[0] == 200 and [int(t) for t in r[1]["result"].split()]
+                == w for r, w in zip(results, want)))
+            check("drain_refuses_new_work", refused == (503, {
+                "error": "replica draining", "reason": "draining"}))
+            check("drain_healthz", health[0] == 503 and
+                  health[1]["reason"] == "draining")
+            check("drain_shuts_down", not thread.is_alive() and
+                  not waiter.is_alive() and any(
+                      p.name.endswith("sigterm_drain")
+                      for p in Path(tmp).iterdir()))
+            torch.cuda.synchronize()
+            after = engine.stats()
+            launches, dense = entry.launches, entry.dense_calls
+            variants = dict(entry.variants)
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.stop()
+    ticks = after["decode_ticks"] - before["decode_ticks"]
+    prefills = sum(after["prefills_per_bucket"].values()) - \
+        sum(before["prefills_per_bucket"].values())
+    check("k3_launches_pinned", variants == {"s1": layers * ticks} and
+          launches == layers * ticks and dense == layers * prefills,
+          variants=variants, ticks=ticks, dense=dense, prefills=prefills)
+    # the simple engine, over a prompt of 64 (one bucket, no padding)
+    simple = SimpleEngine(pipe)
+    simple.warmup()
+    simple_server = build_stdlib_server(
+        ServerConfig(host="127.0.0.1", port=0, engine="simple"),
+        PipelineConfig(), pipeline=pipe, engine=simple)
+    sport = simple_server.server_address[1]
+    sthread = threading.Thread(target=simple_server.serve_forever,
+                               daemon=True)
+    sthread.start()
+    i64 = PROMPT_LENGTHS.index(64)
+    try:
+        reset_launch_counts()
+        code, body = http_json(sport, "/api/text_generation", {
+            "input_text": texts[i64], "max_new_tokens": NEW_TOKENS})
+        torch.cuda.synchronize()
+        simple_launches, simple_variants = entry.launches, \
+            dict(entry.variants)
+        simple_dense = entry.dense_calls
+    finally:
+        simple_server.shutdown()
+        simple_server.server_close()
+    got = [int(t) for t in body["result"].split()] if code == 200 else []
+    parted = near_tie(model, prompts[i64], want[i64], got)
+    checks["simple_equals_continuous"] = parted is None
+    check("simple_within_near_tie_bar", parted is None or parted["ok"],
+          parted=parted)
+    check("simple_k3_launches", simple_variants == {
+        "s1": layers * (NEW_TOKENS - 1)} and simple_dense == layers,
+          variants=simple_variants, dense=simple_dense)
+    say("serving_surface", card=card, checks=checks,
+        ttft_first_token_event_s=[round(t, 4) for t in ttft],
+        ttft_median_s=sorted(ttft)[len(ttft) // 2],
+        streams_wall_s=stream_s, drain_wall_s=drain_s,
+        lanes_busy_at_drain=busy,
+        resume_parted=resumed, simple_parted=parted,
+        decode_ticks=ticks, prefills=prefills, k3_variants=variants,
+        simple_k3_variants=simple_variants,
+        metrics_samples=len(samples))
+    del engine, server, simple, simple_server
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("serving surface: " + "; ".join(failures))
+    return launches + simple_launches
+
+
+# -- phase 4d -----------------------------------------------------------
+
+#: checkpoint round trip (phase 4d): layers kept at Ziya width (40
+#: would write 26 GB per run)
+CKPT_LAYERS = 2
+
+
+def write_safetensors(path: Path, tensors: dict) -> int:
+    """A safetensors file (an 8-byte little-endian header length, the
+    JSON header of ``dtype``, ``shape`` and ``data_offsets``, then the
+    bytes), written tensor by tensor from the card. Returns bytes."""
+    import struct
+    import torch
+    dtypes = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": dtypes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().view(
+                torch.uint8).numpy().tobytes())
+    return 8 + len(head) + offset
+
+
+def phase_checkpoint(prompts, card):
+    """A 2-layer checkpoint at Ziya width (bf16, untied head, ~2.1 GB)
+    written as two safetensors shards, loaded with
+    ``Pipeline(model=dir, tokenizer=IdTokenizer(), device="cuda")``,
+    every parameter held bitwise to the model it was written from, then
+    both served on the 8 prompts through K3 with equal tokens. Returns
+    the K3 launches of the loaded model's run."""
+    import torch
+    from fengshen_tpu_torch.models.llama import (LlamaConfig,
+                                                 LlamaForCausalLM)
+    from fengshen_tpu_torch.ops.kernels import get_entry
+    from fengshen_tpu_torch.pipelines.text_generation import (IdTokenizer,
+                                                              Pipeline)
+    cfg = dataclasses.replace(LlamaConfig.from_pretrained(str(ZIYA_CONFIG)),
+                              num_hidden_layers=CKPT_LAYERS,
+                              param_dtype="bfloat16", dtype="bfloat16",
+                              attention_impl="dense", scan_layers=False,
+                              gradient_checkpointing=False)
+    model = LlamaForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    state = model.state_dict()
+    names = sorted(state)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cfg.save_pretrained(tmp)
+        written = sum(write_safetensors(
+            Path(tmp) / f"model-{i + 1:05d}-of-00002.safetensors",
+            {k: state[k] for k in names[i::2]}) for i in range(2))
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = Pipeline(model=tmp, tokenizer=IdTokenizer(),
+                          max_new_tokens=NEW_TOKENS, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    got = loaded.module.state_dict()
+    unequal = [k for k in names if got[k].dtype != state[k].dtype or
+               not torch.equal(got[k], state[k])]
+    entry = get_entry("decode_attention")
+    pipe = Pipeline(module=model, tokenizer=IdTokenizer(),
+                    max_new_tokens=NEW_TOKENS, device="cuda")
+    want, _ = serve_run(pipe, "paged", prompts, entry)
+    served, launches = serve_run(loaded, "paged", prompts, entry)
+    say("checkpoint", card=card, layers=CKPT_LAYERS,
+        hidden=cfg.hidden_size, vocab=cfg.vocab_size,
+        tensors=len(names), gib_written=written / 2**30,
+        gib_read=written / 2**30, write_s=write_s, load_s=load_s,
+        load_gib_per_s=written / 2**30 / load_s,
+        params_bitwise_equal=not unequal,
+        served_equal=served == want, k3_launches=launches)
+    if unequal or served != want or loaded.module.lm_head is None:
+        raise AssertionError(f"checkpoint round trip: {len(unequal)} "
+                             f"parameters differ ({unequal[:4]}), served "
+                             f"equal {served == want}")
+    del model, loaded, pipe, state, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # -- phase 6 ------------------------------------------------------------
 
 def phase_profile(pipe, prompts, ticks: int = 8, kv_dtype: str = "fp32",
@@ -2799,6 +3190,10 @@ def main() -> int:
     mark("5_int8_serving")
     verify_launches = phase_spec_serving(model, pipe, card)
     mark("5b_spec_serving")
+    launches += phase_serving_surface(model, pipe, prompts, runs, card)
+    mark("4c_serving_surface")
+    launches += phase_checkpoint(prompts, card)
+    mark("4d_checkpoint")
     phase_profile(pipe, prompts)
     phase_profile(pipe, prompts, kv_dtype="int8")
     phase_profile(pipe, prompts, engine_args={

@@ -440,11 +440,14 @@ class LlamaForCausalLM(nn.Module):
     The weights are made on ``device`` directly in ``param_dtype`` from
     ``generator`` (N(0, initializer_range), norms at 1), with no copy in
     any other dtype; load real weights with ``load_state_dict``
-    (:func:`.convert.params_from_jax`). ``device=None`` means ``cuda``
-    and raises without a card."""
+    (:func:`.convert.params_from_jax`). ``init=False`` leaves them
+    unwritten, for a loader that fills every parameter
+    (:func:`.convert.load_hf_pretrained`). ``device=None`` means
+    ``cuda`` and raises without a card."""
 
     def __init__(self, config: LlamaConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 init: bool = True):
         super().__init__()
         if config.int8_lm_head:
             raise NotImplementedError("int8_lm_head is not yet ported")
@@ -455,6 +458,8 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = None if config.tie_word_embeddings else _proj(
                 config, config.hidden_size, config.vocab_size)
         self.to_empty(device=dev)
+        if not init:
+            return
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         self.init_weights(generator)

@@ -4,8 +4,8 @@ from fengshen_tpu_torch.serving.cache import (assign_slot, init_slot_cache,
                                               rollback_slots)
 from fengshen_tpu_torch.serving.engine import (
     CANCELLED, EXPIRED, FINISHED, QUEUED, REJECTED, RUNNING,
-    ContinuousBatchingEngine, EngineConfig, EngineStopped, PromptTooLong,
-    QueueFull, Request)
+    ContinuousBatchingEngine, Draining, DuplicateRequest, EngineConfig,
+    EngineStopped, PromptTooLong, QueueFull, Request)
 from fengshen_tpu_torch.serving.paged_cache import (BlockAllocator,
                                                     assign_paged,
                                                     assign_slot_quantized,
@@ -15,6 +15,7 @@ from fengshen_tpu_torch.serving.paged_cache import (BlockAllocator,
 __all__ = ["DEFAULT_BUCKETS", "BucketLadder", "assign_slot",
            "init_slot_cache", "reset_free_slots", "rollback_slots",
            "CANCELLED", "EXPIRED", "FINISHED", "QUEUED", "REJECTED", "RUNNING",
-           "ContinuousBatchingEngine", "EngineConfig", "EngineStopped",
+           "ContinuousBatchingEngine", "Draining", "DuplicateRequest",
+           "EngineConfig", "EngineStopped",
            "PromptTooLong", "QueueFull", "Request", "BlockAllocator", "assign_paged",
            "assign_slot_quantized", "blocks_for_tokens", "init_pool_cache"]

@@ -41,9 +41,29 @@ gamma+1 and ``rollback_slots`` takes each lane's rejected tail back off,
 as the reference's does. Greedy output, speculative or not, is
 token-identical to ``utils.generate.generate`` (the tests pin it).
 
-Not yet ported from the reference: resume-from-token-k, the commit
-journal, streams, timelines, the flight recorder, AOT, drain and
-evacuation. Options that ask for them raise ``NotImplementedError``.
+Around the ticks, as in the reference (all host-side bookkeeping
+between forwards; greedy tokens are unchanged):
+
+- commit journal: every admitted request stays, by reference, in a
+  bounded ring (``journal_ring``); :meth:`partial` snapshots its
+  committed tokens (``GET /partial/<id>``), and ``submit(resume_tokens=)``
+  resumes a request from them: ONE bucketed prefill of prompt +
+  ``resume_tokens[:-1]``, then decode from ``resume_tokens[-1]``;
+- streams: ``submit(stream=True)`` opens a live token stream the
+  scheduler feeds at commit time; :meth:`attach_stream` reopens it for a
+  ``Last-Event-ID`` reconnect (``streaming/``);
+- timelines: every request carries a ``RequestTimeline`` (enqueued,
+  admitted, prefill, per-tick commits, terminal); the last
+  ``debug_ring`` finished ones stay for :meth:`debug_requests` /
+  :meth:`debug_request`, and their phases feed
+  ``fstpu_request_phase_seconds``;
+- flight recorder: with a ``recorder``, the engine's events enter its
+  ring and a failed tick dumps a bundle (stats, config, timelines);
+- drain: :meth:`begin_drain` refuses new work (``Draining``) and flushes
+  the queue, while running lanes finish; an explicit ``request_id``
+  that is live already raises ``DuplicateRequest``.
+
+Not yet ported: AOT and live evacuation to peers (``serving/handoff.py``).
 """
 
 from __future__ import annotations
@@ -53,8 +73,8 @@ import itertools
 import threading
 import time
 import zlib
-from collections import deque
-from typing import Callable, Optional, Sequence
+from collections import OrderedDict, deque
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,6 +82,8 @@ import torch
 from fengshen_tpu_torch.device import check_module_device
 from fengshen_tpu_torch.models.llama.modeling_llama import (KVCache,
                                                             make_self_draft)
+from fengshen_tpu_torch.observability import (RequestTimeline,
+                                              record_warmup_seconds, span)
 from fengshen_tpu_torch.ops.kernels import KernelError, log_dispatch
 from fengshen_tpu_torch.serving.buckets import DEFAULT_BUCKETS, BucketLadder
 from fengshen_tpu_torch.serving.cache import (assign_slot, init_slot_cache,
@@ -73,6 +95,7 @@ from fengshen_tpu_torch.serving.paged_cache import (BlockAllocator,
                                                     assign_slot_quantized,
                                                     blocks_for_tokens,
                                                     init_pool_cache)
+from fengshen_tpu_torch.streaming import StreamBook
 from fengshen_tpu_torch.utils.generate import (
     STREAM_DRAFT, STREAM_ROUND, STREAM_TOKEN, _controls_active,
     _ngram_propose_lanes, _prefill_cache, _select_token, _spec_round_tokens,
@@ -89,23 +112,31 @@ class PromptTooLong(Exception):
 
 
 class EngineStopped(RuntimeError):
-    """The engine stopped serving after a kernel failure: the API layer
-    maps this to 503, and ``/healthz`` reports the replica not ready."""
+    """The engine stopped serving after a kernel failure or a failed
+    warmup: the API layer maps this to 503, and ``/healthz`` reports the
+    replica not ready."""
+
+
+class Draining(Exception):
+    """The engine is draining (:meth:`ContinuousBatchingEngine.begin_drain`):
+    in-flight work finishes, new submissions are refused (503 with
+    reason "draining" at the API)."""
+
+
+class DuplicateRequest(Exception):
+    """An explicit request_id matching a live (queued or running)
+    request: an id never runs twice at once on one replica (409)."""
 
 
 QUEUED, RUNNING, FINISHED, CANCELLED, EXPIRED, REJECTED = (
     "queued", "running", "finished", "cancelled", "expired", "rejected")
-
-_NOT_PORTED = "not yet ported"
 
 
 @dataclasses.dataclass
 class EngineConfig:
     """Engine knobs (``engine.py:123``), validated as the reference
     validates them (``:205-238``). Every field of the reference's
-    dataclass is accepted, so its configs load; ``debug_ring`` and
-    ``journal_ring`` raise ``NotImplementedError`` for anything but their
-    defaults."""
+    dataclass is accepted, so its configs load."""
 
     num_slots: int = 8
     buckets: Sequence[int] = DEFAULT_BUCKETS
@@ -188,12 +219,6 @@ class EngineConfig:
                     "(repetition_penalty / no_repeat_ngram_size / "
                     "min_length act per committed cursor, but the "
                     "verify forward scores gamma+1 positions at once)")
-        for name in ("debug_ring", "journal_ring"):
-            default = type(self).__dataclass_fields__[name].default
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} (default {default!r}): "
-                    f"{_NOT_PORTED}")
 
 
 class Request:
@@ -203,7 +228,7 @@ class Request:
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int,
                  request_id: Optional[str], deadline: Optional[float],
-                 submit_time: float):
+                 submit_time: float, epoch: Optional[float] = None):
         self.request_id = request_id if request_id is not None else \
             f"req-{next(Request._ids)}"
         self.prompt = prompt
@@ -215,11 +240,22 @@ class Request:
         self.ttft_s: Optional[float] = None
         self.finish_reason: Optional[str] = None
         self.slot: Optional[int] = None
+        #: resume-from-token-k: tokens a previous execution committed
+        #: (prefilled with the prompt, never decoded again) and where
+        #: they came from
+        self.resume: list[int] = []
+        self.resume_source: Optional[str] = None
+        #: the reference's live-evacuation target; the port does not
+        #: evacuate, so it stays None (streams read it)
+        self.evac_target: Optional[str] = None
         #: sampling seed (``submit`` resolves it): with the engine's seed
         #: it makes the lane's key at admission
         self.seed: int = 0
         self._cancel = False
         self._done = threading.Event()
+        #: lifecycle events, appended on the scheduler thread; ``epoch``
+        #: anchors ``submit_time``'s monotonic axis on the wall clock
+        self.timeline = RequestTimeline(submit_time, epoch=epoch)
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         """Block until the request leaves the engine; True when it did
@@ -235,13 +271,17 @@ class ContinuousBatchingEngine:
     """Continuous batching over one LLaMA-family model.
 
     ``device=None`` means ``cuda``; the model must live on the device.
-    ``clock`` is injectable for deterministic deadline tests."""
+    ``clock`` (monotonic) and ``wall`` are injectable for deterministic
+    deadline and timeline tests. ``recorder`` is an optional
+    ``observability.FlightRecorder``."""
 
     engine_type = "continuous"
 
     def __init__(self, model, config: EngineConfig, *, device=None,
                  log: Optional[Callable[[dict], None]] = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 recorder: Any = None,
+                 wall: Callable[[], float] = time.time):
         self.device = check_module_device(model, device)
         self.model = model
         self.config = config
@@ -249,10 +289,22 @@ class ContinuousBatchingEngine:
         self.metrics = EngineMetrics()
         self._log = log or (lambda entry: None)
         self._clock = clock
+        self._wall = wall
+        #: the last debug_ring finished (or rejected) request timelines
+        self._recent: deque = deque(maxlen=config.debug_ring)
         self._t0_clock = clock()
         self._last_error: Optional[dict] = None
-        #: a kernel failure stops the engine for good (see _serve_loop)
+        #: a kernel failure or a failed warmup stops the engine for good
+        #: (see _serve_loop and fail)
         self._fatal: Optional[BaseException] = None
+        self._fatal_what = ""
+        self._recorder = recorder
+        if recorder is not None:
+            # engine events enter the recorder's ring on their way to
+            # the caller's sink; the provider adds stats, config and
+            # timelines to every bundle
+            self._log = recorder.wrap_sink(self._log)
+            recorder.attach("engine", self._debug_bundle)
         log_dispatch(self._log, self.device)
         self.max_len = int(model.config.max_position_embeddings)
         self.paged = config.kv_layout == "paged"
@@ -339,6 +391,13 @@ class ContinuousBatchingEngine:
         self._draw = np.zeros((S,), np.int64)
         self._slot_req: list[Optional[Request]] = [None] * S
         self._queue: deque[Request] = deque()
+        # commit journal: request_id -> the live Request, a bounded
+        # insertion-ordered ring; entries are references, so committed
+        # tokens grow in place at no per-tick cost
+        self._journal: "OrderedDict[str, Request]" = OrderedDict()
+        #: live SSE token streams, fed at commit time
+        self.streams = StreamBook()
+        self._draining = False
         self._cv = threading.Condition()
         self._thread: Optional[threading.Thread] = None
         self._stop_flag = False
@@ -360,80 +419,195 @@ class ContinuousBatchingEngine:
 
     # ---- submission side -------------------------------------------
 
-    def _reject(self, reason: str, ids: np.ndarray, **attrs) -> None:
+    def _journal_add_locked(self, req: Request) -> None:
+        """Enter ``req`` into the bounded commit journal (``:805``; the
+        caller holds ``_cv``). A later request under the same id replaces
+        the older entry: the latest execution owns the id."""
+        self._journal[req.request_id] = req
+        self._journal.move_to_end(req.request_id)
+        while len(self._journal) > self.config.journal_ring:
+            self._journal.popitem(last=False)
+
+    def _record_rejection_locked(self, req: Request, reason: str,
+                                 **attrs) -> None:
+        """Mark ``req`` rejected, stamp its terminal timeline event, put
+        its waterfall in the debug ring and close its stream (the caller
+        holds ``_cv``)."""
+        req.state = REJECTED
+        req.finish_reason = reason
+        req.timeline.add(self._clock(), "rejected", reason=reason, **attrs)
+        self._recent.append(self._request_dict(req))
+        self._sync_stream(req)
+
+    def _reject_prompt(self, ids: np.ndarray, reason: str,
+                       request_id: Optional[str],
+                       trace_id: Optional[str] = None,
+                       parent_span_id: Optional[str] = None,
+                       **attrs) -> None:
+        """A 413-class rejection: counted, logged, and its timeline kept
+        in the debug ring although the request never queued."""
         self.metrics.count("rejected_prompt_too_long")
         self._log({"event": "serving_reject", "reason": reason,
                    "prompt_tokens": int(len(ids)), **attrs})
+        req = Request(ids, 0, request_id, None, self._clock(),
+                      epoch=self._wall())
+        req.timeline.trace_id = trace_id
+        req.timeline.parent_span_id = parent_span_id
+        with self._cv:
+            self._record_rejection_locked(
+                req, reason, prompt_tokens=int(len(ids)), **attrs)
+
+    def _refuse_draining(self) -> None:
+        self.metrics.count("rejected_draining")
+        self._log({"event": "serving_reject", "reason": "draining"})
+        raise Draining("engine is draining; not admitting")
 
     def submit(self, input_ids, max_new_tokens: Optional[int] = None,
                request_id: Optional[str] = None,
                deadline_s: Optional[float] = None,
-               seed: Optional[int] = None) -> Request:
-        """Queue a prompt. Raises QueueFull (backpressure) or
-        PromptTooLong (no bucket or no cache headroom). ``deadline_s`` is
-        seconds from now; an expired request frees its slot and finishes
-        with reason "deadline". ``seed`` pins the request's sampling
-        stream; None derives it from the request id (``:983-988``), so a
-        retry under the same id draws the same tokens."""
+               trace_id: Optional[str] = None,
+               parent_span_id: Optional[str] = None,
+               resume_tokens: Optional[Sequence[int]] = None,
+               resume_source: Optional[str] = None,
+               seed: Optional[int] = None,
+               stream: bool = False) -> Request:
+        """Queue a prompt (``:846-1043``). Raises ``QueueFull``
+        (backpressure), ``PromptTooLong`` (no bucket or no cache
+        headroom), ``Draining`` or ``DuplicateRequest`` (an explicit id
+        that is queued or running). ``deadline_s`` is seconds from now;
+        an expired request frees its slot and finishes with reason
+        "deadline". ``trace_id``/``parent_span_id`` are stamped on the
+        request's timeline.
+
+        ``resume_tokens`` are tokens a previous execution of this
+        request committed (``GET /partial/<id>``). Admission prefills
+        prompt + ``resume_tokens[:-1]`` in ONE bucketed prefill and
+        decodes on from ``resume_tokens[-1]``: greedy, the tail is the
+        uninterrupted run's. ``max_new_tokens`` keeps its meaning of the
+        TOTAL generation (the resumed prefix counts toward it).
+
+        ``seed`` pins the request's sampling stream; None derives it from
+        the request id (``:983-988``), so a retry under the same id
+        draws the same tokens. ``stream=True`` opens a live token stream
+        before any token can commit."""
         if self._fatal is not None:
             raise EngineStopped(self.stopped_reason())
+        if self._draining:
+            self._refuse_draining()
         if max_new_tokens is not None and int(max_new_tokens) < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        resume = [int(t) for t in resume_tokens] if resume_tokens else []
         requested_new = int(max_new_tokens if max_new_tokens is not None
                             else self.config.max_new_tokens)
+        if resume and requested_new <= len(resume):
+            raise ValueError(
+                f"resume_tokens carries {len(resume)} tokens but "
+                f"max_new_tokens={requested_new} leaves nothing to "
+                "decode")
         ids = np.asarray(input_ids, np.int32).reshape(-1)
-        bucket = self.ladder.bucket_for(len(ids))
+        trace = dict(trace_id=trace_id, parent_span_id=parent_span_id)
+        # a resumed request prefills prompt + resume[:-1]; the last
+        # committed token re-enters as the decode seed
+        carried = max(len(resume) - 1, 0)
+        bucket = self.ladder.bucket_for(len(ids) + carried)
         if bucket is None:
-            self._reject("prompt_too_long", ids)
+            self._reject_prompt(ids, "prompt_too_long", request_id, **trace)
             raise PromptTooLong(
                 f"prompt of {len(ids)} tokens exceeds the largest "
                 f"bucket {self.ladder.max_bucket}")
         # the lane holds the bucket, the generated tokens and the
-        # gamma-wide speculative tail
+        # gamma-wide speculative tail; a resumed request's carried
+        # tokens ride inside the bucket, so they give that headroom back
         max_new = min(requested_new,
-                      self.seq_capacity - bucket - self._gamma)
-        if max_new < 1:
-            self._reject("prompt_too_long", ids, bucket=int(bucket))
+                      self.seq_capacity - bucket - self._gamma + carried)
+        if max_new < (len(resume) + 1 if resume else 1):
+            self._reject_prompt(ids, "prompt_too_long", request_id,
+                                bucket=int(bucket), **trace)
             raise PromptTooLong(
                 f"bucket {bucket} leaves no decode headroom in the KV "
                 f"lane capacity {self.seq_capacity}" + self._gamma_note())
         if self.paged:
             # a footprint the whole pool cannot hold would sit at the
             # head of the queue forever: reject it now
-            need = blocks_for_tokens(bucket + max_new + self._gamma,
-                                     self.block_size)
+            need = blocks_for_tokens(
+                bucket + self._decode_span(max_new, resume) + self._gamma,
+                self.block_size)
             if need > self._allocator.total_blocks:
-                self._reject("kv_pool_too_small", ids, blocks_needed=need)
+                self._reject_prompt(
+                    ids, "kv_pool_too_small", request_id,
+                    blocks_needed=int(need),
+                    blocks_total=int(self._allocator.total_blocks),
+                    **trace)
                 raise PromptTooLong(
                     f"request needs {need} KV blocks but the pool only "
                     f"has {self._allocator.total_blocks}")
         now = self._clock()
         req = Request(ids, max_new, request_id,
-                      None if deadline_s is None else now + deadline_s, now)
+                      None if deadline_s is None else now + deadline_s, now,
+                      epoch=self._wall())
+        req.timeline.trace_id = trace_id
+        req.timeline.parent_span_id = parent_span_id
         req.seed = (int(seed) & 0x7FFFFFFF) if seed is not None \
             else zlib.crc32(req.request_id.encode()) & 0x7FFFFFFF
-        with self._cv:
+        if resume:
+            # the journal and the debug endpoints show the true progress
+            # from the start, and the finish check counts the total
+            req.resume = resume
+            req.resume_source = resume_source
+            req.tokens = list(resume)
+        with span("serving/admit"), self._cv:
             # again under the lock: the serve thread sets _fatal and
             # exits holding it, and nothing drains the queue after that
             if self._fatal is not None:
                 raise EngineStopped(self.stopped_reason())
+            if self._draining:
+                self._refuse_draining()
+            if request_id is not None:
+                for live in self._live_requests_locked():
+                    if live.request_id == request_id:
+                        self.metrics.count("rejected_duplicate")
+                        self._log({"event": "serving_reject",
+                                   "reason": "duplicate_request_id",
+                                   "request_id": request_id,
+                                   "live_state": live.state})
+                        raise DuplicateRequest(
+                            f"request_id {request_id!r} is already "
+                            f"{live.state} on this replica")
             if len(self._queue) >= self.config.max_queue:
                 self.metrics.count("rejected_queue_full")
                 self._log({"event": "serving_reject",
                            "reason": "queue_full",
                            "queue_depth": len(self._queue)})
-                req.state, req.finish_reason = REJECTED, "queue_full"
+                self._record_rejection_locked(
+                    req, "queue_full", queue_depth=len(self._queue))
                 raise QueueFull(
                     f"admission queue at max_queue="
                     f"{self.config.max_queue}")
             self._queue.append(req)
+            req.timeline.add(now, "enqueued", prompt_tokens=int(len(ids)),
+                             bucket=bucket, queue_depth=len(self._queue))
+            if resume:
+                req.timeline.add(now, "resumed_from", tokens=len(resume),
+                                 source=resume_source)
+            self._journal_add_locked(req)
+            if stream:
+                # open() replays req.tokens, so a resumed stream starts
+                # at k, not 0
+                self.streams.open(req)
             self.metrics.count("admitted")
             self._log({"event": "serving_admit",
                        "request_id": req.request_id, "bucket": bucket,
                        "queue_depth": len(self._queue)})
             self._cv.notify_all()
         return req
+
+    @staticmethod
+    def _decode_span(max_new: int, resume: list) -> int:
+        """Tokens a lane DECODES past its prefill bucket (what a paged
+        lane is charged for): a resumed request's carried prefix lives
+        inside the bucket."""
+        return max_new - len(resume) + 1 if resume else max_new
 
     def cancel(self, request_id: str) -> bool:
         """Cancel a queued or running request; a running one frees its
@@ -479,17 +653,21 @@ class ContinuousBatchingEngine:
         if self.spec:
             return self._spec_step(active_idx)
         t0 = time.perf_counter()
-        nxt = self._decode_tick()
+        with span("serving/decode"):
+            nxt = self._decode_tick()
         self._draw += 1
-        self.metrics.record_tick(len(active_idx), self.config.num_slots,
-                                 time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.metrics.record_tick(len(active_idx), self.config.num_slots, dt)
         self._last_tok = nxt
         self._pos[self._active] += 1
         self._phys[self._active] += 1
+        t_commit = self._clock()
         for i in active_idx:
             req = self._slot_req[i]
             tok = int(nxt[i])
             req.tokens.append(tok)
+            req.timeline.add(t_commit, "commit", n=1, tick_s=round(dt, 6))
+            self._sync_stream(req)
             if self.config.eos_token_id is not None and \
                     tok == self.config.eos_token_id:
                 self._release(i, FINISHED, "eos")
@@ -504,7 +682,8 @@ class ContinuousBatchingEngine:
         (``engine.py:1075-1135``)."""
         cfg = self.config
         t0 = time.perf_counter()
-        n_r, win = self._spec_tick()
+        with span("serving/decode"):
+            n_r, win = self._spec_tick()
         self._draw += 1
         dt = time.perf_counter() - t0
         commit = np.where(self._active, n_r + 1, 0)
@@ -515,6 +694,7 @@ class ContinuousBatchingEngine:
         # metrics count DELIVERED tokens: a lane that finishes inside
         # its window drops the tail
         delivered = accepted = 0
+        t_commit = self._clock()
         for i in active_idx:
             req = self._slot_req[i]
             k, fin = 0, None
@@ -528,6 +708,12 @@ class ContinuousBatchingEngine:
                 if len(req.tokens) >= req.max_new_tokens:
                     fin = "length"
                     break
+            # the commit event precedes a release: _finish snapshots
+            # the timeline into the debug ring
+            req.timeline.add(t_commit, "commit", n=k,
+                             accepted=min(int(n_r[i]), k),
+                             tick_s=round(dt, 6))
+            self._sync_stream(req)
             if fin is not None:
                 self._release(i, FINISHED, fin)
             delivered += k
@@ -694,21 +880,30 @@ class ContinuousBatchingEngine:
             if req.deadline is not None and now > req.deadline:
                 self._finish(req, EXPIRED, "deadline")
                 continue
-            bucket = self.ladder.bucket_for(len(req.prompt))
+            # resume-from-token-k: the committed prefix minus its last
+            # token joins the prompt in ONE bucketed prefill (the same
+            # left-pad positions as the incremental decode that made it)
+            resume = req.resume
+            prefill_ids = req.prompt if not resume else np.concatenate(
+                [req.prompt, np.asarray(resume[:-1], np.int32)])
+            bucket = self.ladder.bucket_for(len(prefill_ids))
             blocks = None
             if self.paged:
                 # admission needs enough free blocks for the request's
                 # footprint; when the pool can't serve it, the head of
                 # the queue waits for reclaim (FIFO)
                 need = blocks_for_tokens(
-                    bucket + req.max_new_tokens + self._gamma,
-                    self.block_size)
+                    bucket + self._decode_span(req.max_new_tokens, resume)
+                    + self._gamma, self.block_size)
                 blocks = self._allocator.alloc(need)
                 if blocks is None:
                     self._queue.appendleft(req)
                     if self._deferred_req != req.request_id:
                         self._deferred_req = req.request_id
                         self.metrics.count("deferred_admissions")
+                        req.timeline.add(
+                            now, "deferred", blocks_needed=int(need),
+                            blocks_free=int(self._allocator.free_blocks))
                         self._log({"event": "serving_defer",
                                    "reason": "kv_blocks_exhausted",
                                    "request_id": req.request_id,
@@ -719,13 +914,26 @@ class ContinuousBatchingEngine:
                 self._deferred_req = None
             try:
                 row, mask_row = self.ladder.pad_prompt(
-                    req.prompt, bucket, self.config.pad_token_id)
+                    prefill_ids, bucket, self.config.pad_token_id)
                 key = lane_key(self.config.seed, req.seed)
-                tok, primed = self._prefill(row, mask_row, key)
+                req.timeline.add(self._clock(), "admitted", slot=slot,
+                                 bucket=int(bucket))
+                req.timeline.add(self._clock(), "prefill_start",
+                                 bucket=int(bucket))
+                with span("serving/prefill"):
+                    tok, primed = self._prefill(row, mask_row, key)
                 self.metrics.record_prefill(bucket)
-                req.ttft_s = self._clock() - req.submit_time
+                t_first = self._clock()
+                req.ttft_s = t_first - req.submit_time
                 self.metrics.record_ttft(req.ttft_s)
-                req.tokens.append(tok)
+                req.timeline.add(t_first, "first_token")
+                if resume:
+                    # the prefill's token is dropped: a resumed lane's
+                    # next decode seed is the committed resume[-1]
+                    tok = resume[-1]
+                else:
+                    req.tokens.append(tok)
+                self._sync_stream(req)
                 done = None
                 if self.config.eos_token_id is not None and \
                         tok == self.config.eos_token_id:
@@ -769,10 +977,14 @@ class ContinuousBatchingEngine:
             self._slot_req[slot] = req
             self._active[slot] = True
             self._last_tok[slot] = tok
-            self._pos[slot] = len(req.prompt)   # logical pos of last_tok
+            # logical position of last_tok: prompt + committed - 1 (a
+            # fresh lane holds one token, a resumed one k)
+            self._pos[slot] = len(req.prompt) + len(req.tokens) - 1
             self._phys[slot] = bucket           # physical cursor
             self._keys[slot] = key
-            self._draw[slot] = 1
+            # token j of a request is drawn at counter j (the prefill's
+            # at 0), so a resumed lane draws on where it stopped
+            self._draw[slot] = len(req.tokens)
 
     def _release(self, slot: int, state: str, reason: str) -> None:
         req = self._slot_req[slot]
@@ -793,11 +1005,25 @@ class ContinuousBatchingEngine:
         req.slot = None
         self.metrics.count({FINISHED: "completed", CANCELLED: "cancelled",
                             EXPIRED: "expired"}[state])
-        self.metrics.record_latency(self._clock() - req.submit_time)
+        end_t = self._clock()
+        req.timeline.add(end_t, state, reason=reason)
+        phases = req.timeline.phases(end_t)
+        self.metrics.record_phases(phases)
+        self._recent.append(self._request_dict(req, phases=phases))
+        self.metrics.record_latency(end_t - req.submit_time)
         self._log({"event": "serving_finish",
                    "request_id": req.request_id, "reason": reason,
                    "tokens": len(req.tokens), "ttft_s": req.ttft_s})
+        # the terminal sync delivers any tail tokens and closes the stream
+        self._sync_stream(req)
         req._done.set()
+
+    def _sync_stream(self, req: Request) -> None:
+        """Push ``req``'s committed tokens to its live stream, if one is
+        open (one dict probe when none is)."""
+        n = self.streams.sync(req)
+        if n:
+            self.metrics.record_stream_tokens(n)
 
     # ---- running the engine -----------------------------------------
 
@@ -845,14 +1071,48 @@ class ContinuousBatchingEngine:
                         # the in-flight work fails, so a retry that
                         # follows its 503 finds the engine stopped)
                         self._fatal = e
+                        self._fatal_what = "a kernel failure"
                     self._reset_pool_locked()
-                    if self._fatal is not None:
-                        return
+                self._dump("engine_tick_error",
+                           {"error_type": type(e).__name__})
+                if self._fatal is not None:
+                    return
                 n = 0
+            if self._recorder is not None:
+                # rate-limited inside: the bundle carries recent metric
+                # trajectories, not only the final values
+                self._recorder.snapshot_metrics((self.metrics.registry,))
             if n == 0:
                 with self._cv:
                     if not self._queue and not self._stop_flag:
                         self._cv.wait(timeout=0.02)
+
+    def _dump(self, reason: str, extra: dict) -> None:
+        """Write a flight-recorder bundle, if a recorder is attached;
+        its failure is logged, never raised."""
+        if self._recorder is None:
+            return
+        try:
+            self._recorder.snapshot_metrics((self.metrics.registry,),
+                                            force=True)
+            self._recorder.dump(reason=reason, extra=extra)
+        except Exception as err:  # noqa: BLE001 - telemetry only
+            self._log({"event": "flightrec_dump_error",
+                       "error": str(err)[:200]})
+
+    def fail(self, error: BaseException, what: str) -> None:
+        """Stop the engine for good with ``error`` (``what`` happened,
+        e.g. "a failed warmup"): queued work fails, later submissions
+        raise ``EngineStopped``, and :meth:`stopped_reason` says why."""
+        with self._cv:
+            self._fatal = error
+            self._fatal_what = what
+            self._last_error = {"type": type(error).__name__,
+                                "at": self._clock()}
+            self._reset_pool_locked()
+            self._cv.notify_all()
+        self._dump("engine_stopped", {"error_type": type(error).__name__,
+                                      "what": what})
 
     def _reset_pool_locked(self) -> None:
         """Fail every queued/running request and rebuild the pool."""
@@ -887,12 +1147,90 @@ class ContinuousBatchingEngine:
             self._thread.join(timeout=5.0)
             self._thread = None
 
+    # ---- drain ---------------------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def begin_drain(self) -> None:
+        """Refuse new work (``submit`` raises ``Draining``) and flush the
+        queued-but-unstarted requests back to their callers as
+        rejections with reason "draining" (503 at the API). Running
+        lanes keep decoding to their end (``:1536``)."""
+        with self._cv:
+            if self._draining:
+                return
+            self._draining = True
+            flushed = list(self._queue)
+            self._queue.clear()
+            for req in flushed:
+                self._record_rejection_locked(req, "draining")
+                req._done.set()
+            self._log({"event": "serving_drain",
+                       "queued_flushed": len(flushed),
+                       "active": int(self._active.sum())})
+            self._cv.notify_all()
+
+    def idle(self) -> bool:
+        """True when nothing is queued or decoding (the drain's exit
+        condition)."""
+        with self._cv:
+            return not self._queue and not bool(self._active.any())
+
+    def live_lane_ids(self) -> list:
+        """Request ids of every RUNNING lane."""
+        with self._cv:
+            return [r.request_id for r in self._slot_req
+                    if r is not None and r.state == RUNNING]
+
+    # ---- commit journal and streams -------------------------------------
+
+    def partial(self, request_id: str) -> Optional[dict]:
+        """``GET /partial/<id>`` (``:1579``): the journal's snapshot of
+        one request's committed tokens; None when the id never ran here
+        or aged out of the ring."""
+        with self._cv:
+            req = self._journal.get(request_id)
+            if req is None:
+                return None
+            out = {"request_id": req.request_id,
+                   "state": req.state,
+                   "finish_reason": req.finish_reason,
+                   "prompt_tokens": int(len(req.prompt)),
+                   "generated_tokens": len(req.tokens),
+                   "tokens": [int(t) for t in req.tokens],
+                   "max_new_tokens": int(req.max_new_tokens),
+                   "ttft_s": (None if req.ttft_s is None
+                              else round(req.ttft_s, 6)),
+                   "trace_id": req.timeline.trace_id}
+            if req.evac_target is not None:
+                out["evac_target"] = req.evac_target
+            if req.resume:
+                out["resumed_tokens"] = len(req.resume)
+                out["resume_source"] = req.resume_source
+            return out
+
+    def attach_stream(self, request_id: str):
+        """(Re)open the live token stream of a journaled request, the
+        ``Last-Event-ID`` reconnect path (``:1606``): an open stream is
+        returned as is; a finished request's stream replays its tokens
+        and closes. None when the id is not in the journal."""
+        with self._cv:
+            req = self._journal.get(request_id)
+            if req is None:
+                return None
+            return self.streams.open(req)
+
+    # ---- warmup and observability -------------------------------------
+
     def warmup(self) -> float:
         """Run one prefill per bucket and one decode (or speculative)
         tick before traffic, so the first user pays neither the kernel
         build nor the libraries' first-call setup. Returns seconds. With
         every lane free the tick only writes where nothing is read (lane
-        positions from 0, the null block)."""
+        positions from 0, the null block). A failure raises; the server
+        then stops the engine (:meth:`fail`) instead of serving."""
         t0 = time.perf_counter()
         with self._cv:
             for bucket in self.ladder.buckets:
@@ -907,17 +1245,18 @@ class ContinuousBatchingEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
-        self.metrics.warmup_s = dt
-        self._log({"event": "serving_warmup", "seconds": dt,
+        self.metrics.warmup_compile_s = round(dt, 3)
+        record_warmup_seconds("engine", dt)
+        self._log({"event": "serving_warmup", "seconds": round(dt, 3),
                    "buckets": list(self.ladder.buckets),
                    "num_slots": self.config.num_slots})
         return dt
 
-    # ---- observability ----------------------------------------------
-
     def _kv_stats_locked(self) -> dict:
         """KV-pool utilization; the slot layout reports lanes as
-        max_len-token blocks so the two layouts read on one scale."""
+        max_len-token blocks so the two layouts read on one scale;
+        fragmentation is the unwritten fraction of allocated lane
+        capacity."""
         cfg = self.config
         used_tokens = int(self._phys[self._active].sum())
         if self.paged:
@@ -931,36 +1270,110 @@ class ContinuousBatchingEngine:
             used = int(self._active.sum())
             block_tokens = self.max_len
             alloc_tokens = used * block_tokens
-        return {
-            "kv_layout": cfg.kv_layout, "kv_dtype": cfg.kv_dtype,
-            "kv_blocks_total": total, "kv_blocks_used": used,
-            "kv_blocks_free": total - used, "kv_block_tokens": block_tokens,
-            "kv_cache_bytes": self._kv_bytes,
-            "kv_fragmentation": (1.0 - used_tokens / alloc_tokens
-                                 if alloc_tokens else 0.0)}
+        frag = round(1.0 - used_tokens / alloc_tokens, 4) \
+            if alloc_tokens else 0.0
+        return {"layout": cfg.kv_layout, "dtype": cfg.kv_dtype,
+                "blocks_total": total, "blocks_used": used,
+                "blocks_free": total - used, "block_tokens": block_tokens,
+                "bytes": self._kv_bytes, "fragmentation": frag}
 
     def stopped_reason(self) -> Optional[str]:
-        """Why the engine stopped serving for good (a kernel failure), or
-        None while it serves."""
+        """Why the engine stopped serving for good (a kernel failure or
+        a failed warmup), or None while it serves."""
         if self._fatal is None:
             return None
-        return (f"engine stopped after a kernel failure: "
+        return (f"engine stopped after {self._fatal_what}: "
                 f"{type(self._fatal).__name__}: {self._fatal}")
 
     def stats(self) -> dict:
+        """The ``/stats`` payload: the reference's keys (``:1738``) plus
+        ``decode_seconds`` and ``device``."""
         with self._cv:
             now = self._clock()
             last_error = None
             if self._last_error is not None:
-                last_error = {"type": self._last_error["type"],
-                              "age_s": now - self._last_error["at"]}
-            return self.metrics.snapshot(
-                spec=({"mode": self.config.spec_mode,
-                       "gamma": self.config.spec_gamma}
-                      if self.spec else None),
+                last_error = {
+                    "type": self._last_error["type"],
+                    "age_s": round(now - self._last_error["at"], 3)}
+            return dict(self.metrics.snapshot(
                 queue_depth=len(self._queue),
                 slots_active=int(self._active.sum()),
                 num_slots=self.config.num_slots,
+                kv=self._kv_stats_locked(),
+                spec=({"mode": self.config.spec_mode,
+                       "gamma": self.config.spec_gamma}
+                      if self.spec else None),
+                streams=({"active": self.streams.active()}
+                         if self.streams.ever_opened else None),
                 uptime_s=now - self._t0_clock, last_error=last_error,
-                device=str(self.device), engine_type=self.engine_type,
-                **self._kv_stats_locked())
+                draining=self._draining),
+                engine_type=self.engine_type, device=str(self.device))
+
+    # ---- debug introspection ------------------------------------------
+
+    def _request_dict(self, req: Request,
+                      phases: Optional[dict] = None) -> dict:
+        """The full waterfall of one request, live or finished (callers
+        hold ``_cv``)."""
+        if phases is None:
+            phases = req.timeline.phases(self._clock())
+        d = {"request_id": req.request_id,
+             "state": req.state,
+             "finish_reason": req.finish_reason,
+             "prompt_tokens": int(len(req.prompt)),
+             "generated_tokens": len(req.tokens),
+             "max_new_tokens": int(req.max_new_tokens),
+             "slot": req.slot,
+             "ttft_s": (None if req.ttft_s is None
+                        else round(req.ttft_s, 6)),
+             "phases": phases}
+        d.update(req.timeline.to_dict())
+        return d
+
+    @staticmethod
+    def _request_summary(d: dict) -> dict:
+        """The list-endpoint row: the waterfall minus its event log."""
+        return {k: d[k] for k in
+                ("request_id", "state", "finish_reason",
+                 "prompt_tokens", "generated_tokens", "slot",
+                 "ttft_s", "phases", "trace_id")}
+
+    def _live_requests_locked(self) -> list:
+        return list(self._queue) + [r for r in self._slot_req
+                                    if r is not None]
+
+    def debug_requests(self) -> dict:
+        """``GET /debug/requests`` (``:1824``): summaries of every queued
+        and running request and of the ring of recently finished (or
+        rejected) ones, newest last."""
+        with self._cv:
+            in_flight = [self._request_summary(self._request_dict(r))
+                         for r in self._live_requests_locked()]
+            recent = [self._request_summary(d) for d in self._recent]
+        return {"in_flight": in_flight, "recent": recent,
+                "debug_ring": self.config.debug_ring}
+
+    def debug_request(self, request_id: str) -> Optional[dict]:
+        """``GET /debug/requests/<id>`` (``:1835``): the full event
+        timeline and waterfall; None when the id is neither live nor in
+        the ring."""
+        with self._cv:
+            for req in self._live_requests_locked():
+                if req.request_id == request_id:
+                    return self._request_dict(req)
+            for d in reversed(self._recent):
+                if d["request_id"] == request_id:
+                    return d
+        return None
+
+    def _debug_bundle(self) -> dict:
+        """The flight-recorder provider: stats, configs and every live
+        and recent request's timeline."""
+        with self._cv:
+            requests = [self._request_dict(r)
+                        for r in self._live_requests_locked()]
+            requests += list(self._recent)
+        return {"stats": self.stats(),
+                "engine_config": repr(self.config),
+                "model_config": repr(self.model.config),
+                "requests": requests}

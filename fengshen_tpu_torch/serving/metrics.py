@@ -1,108 +1,303 @@
-"""Engine-level serving metrics: the ``/stats`` subset of
-``fengshen_tpu/serving/metrics.py``, as plain thread-safe counters (the
-reference's Prometheus registry is not ported)."""
+"""Engine-level serving metrics: the port of
+``fengshen_tpu/serving/metrics.py`` (``EngineMetrics`` :54), a thin
+adapter over the observability registry.
+
+The engine takes an optional ``log`` callable and emits
+``serving_admit``/``serving_reject``/``serving_finish``/``serving_warmup``
+dicts; ``snapshot()`` is the ``/stats`` payload, in the reference's
+shape plus ``decode_seconds`` (the decode forwards' wall seconds, which
+``decode_tokens_per_sec`` divides by). The storage is
+:mod:`fengshen_tpu_torch.observability` counters, gauges and
+histograms, so ``/metrics`` renders the same numbers in Prometheus
+text. Each EngineMetrics owns a fresh ``MetricsRegistry`` by default
+(``.registry``): concurrent engines in one process never mix their
+counts. The api layer renders it after the process-global one.
+"""
 
 from __future__ import annotations
 
-import threading
-from collections import deque
 from typing import Optional
 
-COUNTERS = ("admitted", "rejected_queue_full", "rejected_prompt_too_long",
-            "completed", "cancelled", "expired", "deferred_admissions")
+from fengshen_tpu_torch.observability import MetricsRegistry
 
-
-def _percentile(values, q: float) -> float:
-    """Nearest-rank percentile (0 for no values)."""
-    if not values:
-        return 0.0
-    ordered = sorted(values)
-    return ordered[min(len(ordered) - 1, max(0, int(round(
-        q * (len(ordered) - 1)))))]
+#: snapshot field -> (metric name, help) for the plain counters the
+#: engine bumps via `count()`
+_COUNTERS = {
+    "admitted": ("fstpu_serving_admitted_total",
+                 "requests accepted into the admission queue"),
+    "rejected_queue_full": ("fstpu_serving_rejected_queue_full_total",
+                            "submissions rejected with QueueFull (429)"),
+    "rejected_prompt_too_long": (
+        "fstpu_serving_rejected_prompt_too_long_total",
+        "submissions rejected with PromptTooLong (413)"),
+    "rejected_draining": (
+        "fstpu_serving_rejected_draining_total",
+        "submissions refused while the engine drains (503)"),
+    "rejected_duplicate": (
+        "fstpu_serving_rejected_duplicate_total",
+        "submissions rejected for a live duplicate request_id (409)"),
+    "completed": ("fstpu_serving_completed_total",
+                  "requests finished (eos or length)"),
+    "cancelled": ("fstpu_serving_cancelled_total",
+                  "requests cancelled by the client"),
+    "expired": ("fstpu_serving_expired_total",
+                "requests dropped at their deadline or by engine error"),
+    "deferred_admissions": (
+        "fstpu_serving_deferred_admissions_total",
+        "admissions deferred waiting for free KV blocks (paged pool)"),
+}
 
 
 class EngineMetrics:
-    def __init__(self, window: int = 512):
-        self._lock = threading.Lock()
-        self._counts = dict.fromkeys(COUNTERS, 0)
-        self._prefills: dict[int, int] = {}
-        self._ticks = 0
-        self._decode_tokens = 0
-        self._decode_s = 0.0
-        self._occupied = 0
-        self._lane_ticks = 0
-        self._peak_active = 0
-        self._spec_drafted = 0
-        self._spec_accepted = 0
-        self._ttft: deque = deque(maxlen=window)
-        self._latency: deque = deque(maxlen=window)
-        self.warmup_s: Optional[float] = None
+    """Thread-safe serving metrics (storage: observability registry)."""
 
+    def __init__(self, window: int = 512,
+                 registry: Optional[MetricsRegistry] = None):
+        r = self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        self._counters = {field: r.counter(name, help)
+                          for field, (name, help) in _COUNTERS.items()}
+        self._prefills = r.counter(
+            "fstpu_serving_prefills_total",
+            "prefills per bucket width", labelnames=("bucket",))
+        self._decode_ticks = r.counter(
+            "fstpu_serving_decode_ticks_total", "decode ticks")
+        self._decode_tokens = r.counter(
+            "fstpu_serving_decode_tokens_total",
+            "tokens generated by decode ticks")
+        self._decode_time = r.counter(
+            "fstpu_serving_decode_seconds_total",
+            "wall seconds inside the decode forward")
+        self._occupied_ticks = r.counter(
+            "fstpu_serving_occupied_slot_ticks_total",
+            "per-tick sum of active lanes")
+        self._total_ticks = r.counter(
+            "fstpu_serving_slot_ticks_total",
+            "per-tick sum of pool lanes")
+        self._ttft = r.histogram(
+            "fstpu_serving_ttft_seconds", "submit-to-first-token",
+            window=window)
+        self._phase = r.histogram(
+            "fstpu_request_phase_seconds",
+            "per-request lifecycle phase wall seconds "
+            "(queue_wait / prefill / decode / decode_stall)",
+            labelnames=("phase",), window=window)
+        self._latency = r.histogram(
+            "fstpu_serving_request_seconds",
+            "submit-to-finish (any reason)", window=window)
+        self._g_queue = r.gauge(
+            "fstpu_serving_queue_depth", "admission queue depth")
+        self._g_active = r.gauge(
+            "fstpu_serving_slots_active", "lanes decoding right now")
+        self._g_slots = r.gauge(
+            "fstpu_serving_num_slots", "pool size")
+        self._g_warmup = r.gauge(
+            "fstpu_serving_warmup_compile_seconds",
+            "engine warmup compile wall seconds")
+        self._g_peak = r.gauge(
+            "fstpu_serving_slots_active_peak",
+            "max lanes decoding in any one tick (engine lifetime)")
+        self._g_kv_total = r.gauge(
+            "fstpu_kv_blocks_total", "allocatable KV-pool blocks")
+        self._g_kv_used = r.gauge(
+            "fstpu_kv_blocks_used", "KV-pool blocks held by live lanes")
+        self._g_kv_bytes = r.gauge(
+            "fstpu_kv_cache_bytes", "device bytes of the KV pool")
+        self._g_kv_frag = r.gauge(
+            "fstpu_kv_fragmentation",
+            "unwritten fraction of allocated KV lane capacity")
+        self._spec_drafted = r.counter(
+            "fstpu_serving_spec_drafted_total",
+            "tokens proposed by the speculative drafter")
+        self._spec_accepted = r.counter(
+            "fstpu_serving_spec_accepted_total",
+            "drafted tokens accepted by the verify forward")
+        self._g_spec_ratio = r.gauge(
+            "fstpu_spec_accepted_ratio",
+            "accepted / drafted fraction of speculative proposals")
+        self._stream_tokens = r.counter(
+            "fstpu_stream_tokens_total",
+            "tokens pushed to live SSE streams at commit time")
+        self._stream_reconnects = r.counter(
+            "fstpu_stream_reconnects_total",
+            "Last-Event-ID stream reattachments served")
+        self._stream_ttfb = r.histogram(
+            "fstpu_stream_ttfb_seconds",
+            "request-received to first SSE byte written",
+            window=window)
+        self._g_streams = r.gauge(
+            "fstpu_streams_active", "open (unclosed) SSE token streams")
+        self._peak_active = 0
+        self._warmup_compile_s: Optional[float] = None
+
+    # -- engine-facing mutators ---------------------------------------
     def count(self, field: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[field] += n
+        self._counters[field].inc(n)
 
     def record_prefill(self, bucket: int) -> None:
-        with self._lock:
-            self._prefills[bucket] = self._prefills.get(bucket, 0) + 1
+        self._prefills.labels(bucket).inc()
 
     def record_tick(self, n_active: int, num_slots: int,
-                    seconds: float, tokens: Optional[int] = None) -> None:
-        """One decode tick; ``tokens`` is what it delivered (default one
-        per active lane, the plain tick; a speculative tick delivers
-        1..gamma+1 per lane)."""
-        with self._lock:
-            self._ticks += 1
-            self._decode_tokens += n_active if tokens is None else tokens
-            self._decode_s += seconds
-            self._occupied += n_active
-            self._lane_ticks += num_slots
-            self._peak_active = max(self._peak_active, n_active)
+                    seconds: float,
+                    tokens: Optional[int] = None) -> None:
+        """`tokens` defaults to `n_active` (one committed token per
+        active lane — the plain decode tick); the speculative tick
+        passes the real committed count, which exceeds the lane count
+        whenever draft proposals were accepted."""
+        self._decode_ticks.inc()
+        self._decode_tokens.inc(n_active if tokens is None else tokens)
+        self._decode_time.inc(seconds)
+        self._occupied_ticks.inc(n_active)
+        self._total_ticks.inc(num_slots)
+        if n_active > self._peak_active:
+            self._peak_active = n_active
+            self._g_peak.set(n_active)
 
     def record_spec(self, drafted: int, accepted: int) -> None:
-        """One speculative verify's draft and accept tallies."""
-        with self._lock:
-            self._spec_drafted += drafted
-            self._spec_accepted += accepted
+        """One speculative verify's draft/accept tallies; keeps the
+        `fstpu_spec_accepted_ratio` gauge scrape-fresh."""
+        self._spec_drafted.inc(drafted)
+        self._spec_accepted.inc(accepted)
+        total = self._spec_drafted.value()
+        if total > 0:
+            self._g_spec_ratio.set(
+                round(self._spec_accepted.value() / total, 4))
 
     def record_ttft(self, seconds: float) -> None:
-        with self._lock:
-            self._ttft.append(seconds)
+        self._ttft.observe(seconds)
+
+    # -- streaming ---------------------------------------------------
+    def record_stream_tokens(self, n: int) -> None:
+        """Tokens newly pushed to a live stream (the scheduler's sync
+        path calls this per commit; 0-token syncs never reach here)."""
+        if n > 0:
+            self._stream_tokens.inc(n)
+
+    def record_stream_reconnect(self) -> None:
+        self._stream_reconnects.inc()
+
+    def record_stream_ttfb(self, seconds: float) -> None:
+        """Request-received to first SSE byte on the wire: the
+        delivery-layer TTFT (ttft_seconds keeps its commit-time
+        meaning)."""
+        self._stream_ttfb.observe(seconds)
+
+    def record_phases(self, phases: dict) -> None:
+        """One finished request's derived waterfall (timeline.phases())
+        into `fstpu_request_phase_seconds{phase}`: the per-phase
+        latency attribution."""
+        for key in ("queue_wait_s", "prefill_s", "decode_s",
+                    "decode_stall_s"):
+            if key in phases:
+                self._phase.labels(key[:-2]).observe(phases[key])
 
     def record_latency(self, seconds: float) -> None:
-        with self._lock:
-            self._latency.append(seconds)
+        self._latency.observe(seconds)
 
-    def snapshot(self, spec: Optional[dict] = None, **extra) -> dict:
-        """The ``/stats`` payload; ``extra`` (queue depth, pool state)
-        comes from the engine. ``spec`` (``{"mode", "gamma"}``) adds the
-        speculative section (``serving/metrics.py:298-308`` of the
-        reference); None, a non-spec engine, keeps the payload's keys as
-        they were."""
-        with self._lock:
-            ttft = list(self._ttft)
-            out = dict(self._counts)
-            out.update(
-                prefills_per_bucket=dict(sorted(self._prefills.items())),
-                decode_ticks=self._ticks,
-                decode_tokens=self._decode_tokens,
-                decode_seconds=self._decode_s,
-                decode_tokens_per_sec=(self._decode_tokens / self._decode_s
-                                       if self._decode_s > 0 else 0.0),
-                slot_occupancy=(self._occupied / self._lane_ticks
-                                if self._lane_ticks else 0.0),
-                slots_active_peak=self._peak_active,
-                ttft_avg_s=sum(ttft) / len(ttft) if ttft else 0.0,
-                ttft_p50_s=_percentile(ttft, 0.5),
-                ttft_p95_s=_percentile(ttft, 0.95),
-                latency_p50_s=_percentile(list(self._latency), 0.5),
-                warmup_s=self.warmup_s)
-            if spec is not None:
-                drafted, accepted = self._spec_drafted, self._spec_accepted
-                out.update(spec_mode=spec["mode"], spec_gamma=spec["gamma"],
-                           spec_drafted_total=drafted,
-                           spec_accepted_total=accepted,
-                           spec_acceptance_rate=(accepted / drafted
-                                                 if drafted else 0.0))
-        out.update(extra)
+    @property
+    def warmup_compile_s(self) -> Optional[float]:
+        return self._warmup_compile_s
+
+    @warmup_compile_s.setter
+    def warmup_compile_s(self, seconds: Optional[float]) -> None:
+        self._warmup_compile_s = seconds
+        if seconds is not None:
+            self._g_warmup.set(seconds)
+
+    # -- reads --------------------------------------------------------
+    def _int(self, field: str) -> int:
+        return int(self._counters[field].value())
+
+    def snapshot(self, queue_depth: int, slots_active: int,
+                 num_slots: int, kv: Optional[dict] = None,
+                 spec: Optional[dict] = None, uptime_s: float = 0.0,
+                 last_error: Optional[dict] = None,
+                 draining: bool = False,
+                 streams: Optional[dict] = None) -> dict:
+        """The `/stats` payload (the reference's keys, plus
+        ``decode_seconds``); also refreshes the pool gauges so a
+        `/metrics` scrape right after reads current depth/occupancy.
+        `kv` is the engine's KV-pool utilization dict (layout, dtype,
+        blocks total/used/free, block_tokens, bytes, fragmentation);
+        the defaults describe an empty fp32 slot pool. `spec`
+        ({"mode", "gamma"}) adds the speculative section; None (a
+        non-spec engine) leaves its keys out. `last_error` is None or
+        a {"type", "age_s"} pair, never a traceback. `draining` says
+        the engine refuses new work. `streams` ({"active": n}) adds
+        `streams_active`; None (an engine that never streamed) leaves
+        it out."""
+        if kv is None:
+            kv = {"layout": "slot", "dtype": "fp32", "blocks_total": 0,
+                  "blocks_used": 0, "blocks_free": 0, "block_tokens": 0,
+                  "bytes": 0, "fragmentation": 0.0}
+        self._g_queue.set(queue_depth)
+        self._g_active.set(slots_active)
+        self._g_slots.set(num_slots)
+        self._g_kv_total.set(kv["blocks_total"])
+        self._g_kv_used.set(kv["blocks_used"])
+        self._g_kv_bytes.set(kv["bytes"])
+        self._g_kv_frag.set(kv["fragmentation"])
+        ttft = self._ttft.window_values()
+        decode_tokens = int(self._decode_tokens.value())
+        decode_time_s = self._decode_time.value()
+        total_ticks = int(self._total_ticks.value())
+        decode_tps = (decode_tokens / decode_time_s
+                      if decode_time_s > 0 else 0.0)
+        occupancy = (int(self._occupied_ticks.value()) / total_ticks
+                     if total_ticks > 0 else 0.0)
+        out = {
+            "queue_depth": queue_depth,
+            "slots_active": slots_active,
+            "num_slots": num_slots,
+            "admitted": self._int("admitted"),
+            "rejected_queue_full": self._int("rejected_queue_full"),
+            "rejected_prompt_too_long":
+                self._int("rejected_prompt_too_long"),
+            "rejected_draining": self._int("rejected_draining"),
+            "rejected_duplicate": self._int("rejected_duplicate"),
+            "completed": self._int("completed"),
+            "cancelled": self._int("cancelled"),
+            "expired": self._int("expired"),
+            "deferred_admissions": self._int("deferred_admissions"),
+            "slots_active_peak": self._peak_active,
+            "kv_layout": kv["layout"],
+            "kv_dtype": kv["dtype"],
+            "kv_blocks_total": kv["blocks_total"],
+            "kv_blocks_used": kv["blocks_used"],
+            "kv_blocks_free": kv["blocks_free"],
+            "kv_block_tokens": kv["block_tokens"],
+            "kv_cache_bytes": kv["bytes"],
+            "kv_fragmentation": kv["fragmentation"],
+            "prefills_per_bucket": {
+                int(values[0]): int(child.value)
+                for values, child in self._prefills.children()},
+            "decode_ticks": int(self._decode_ticks.value()),
+            "decode_tokens": decode_tokens,
+            "decode_seconds": decode_time_s,
+            "decode_tokens_per_sec": round(decode_tps, 2),
+            "slot_occupancy": round(occupancy, 4),
+            "ttft_avg_s": round(sum(ttft) / len(ttft), 4) if ttft
+                          else 0.0,
+            "ttft_p50_s": round(self._ttft.percentile(0.5), 4),
+            "ttft_p95_s": round(self._ttft.percentile(0.95), 4),
+            "warmup_compile_s": self._warmup_compile_s,
+            "uptime_s": round(float(uptime_s), 3),
+            "last_error": last_error,
+            "draining": bool(draining),
+        }
+        if spec is not None:
+            drafted = int(self._spec_drafted.value())
+            accepted = int(self._spec_accepted.value())
+            rate = round(accepted / drafted, 4) if drafted else 0.0
+            self._g_spec_ratio.set(rate)
+            out.update({
+                "spec_mode": spec["mode"],
+                "spec_gamma": spec["gamma"],
+                "spec_drafted_total": drafted,
+                "spec_accepted_total": accepted,
+                "spec_acceptance_rate": rate,
+            })
+        if streams is not None:
+            self._g_streams.set(streams["active"])
+            out["streams_active"] = int(streams["active"])
         return out

@@ -1,8 +1,9 @@
 """The port stands alone: it imports torch, never jax, flax or the JAX
 package (``fengshen_tpu``, matched as the exact top-level name: the
-port's own name starts with it), nor ``transformers`` or ``datasets``
-(the card's machine has neither), and its entry points run on the card
-unless the caller asks for the CPU."""
+port's own name starts with it), nor ``datasets``; ``transformers`` only
+inside a function (the tokenizer of a checkpoint directory, loaded on
+that path alone), so importing any port module never loads it; and its
+entry points run on the card unless the caller asks for the CPU."""
 
 import ast
 import json
@@ -17,6 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "fengshen_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "fengshen_tpu", "transformers",
              "datasets"}
+#: imported by the port only inside a function body
+LAZY_ONLY = {"transformers"}
 
 
 def _port_files():
@@ -50,6 +53,10 @@ def test_importing_every_port_module_loads_no_jax():
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_port_file_imports_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))
+    in_function = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            in_function.update(id(n) for n in ast.walk(node))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -58,7 +65,10 @@ def test_no_port_file_imports_jax(path):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, \
+            top = name.split(".")[0]
+            if top in LAZY_ONLY and id(node) in in_function:
+                continue
+            assert top not in FORBIDDEN, \
                 f"{path.name}:{node.lineno} imports {name}"
 
 

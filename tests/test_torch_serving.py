@@ -33,6 +33,7 @@ import functools
 import json
 import os
 import queue
+import signal
 import subprocess
 import sys
 import threading
@@ -133,6 +134,47 @@ def port_refs(port_model):
     return [generate(port_model, p[None], max_new_tokens=MAX_NEW,
                      device="cpu")[0, len(p):].tolist()
             for p in _prompts()]
+
+
+#: the tiny BertTokenizer vocab the JAX pipeline tests build
+#: (``tests/test_pipelines.py:14``): ids 0..36, inside every vocab here
+TOKEN_CHARS = "今天天气很好坏非常糟糕开心难过测试句子北京上海人名地名"
+TEXTS = ("今天天气很好", "北京上海人名地名测试", "开心", "非常糟糕难过坏句子")
+
+
+def _bert_tokenizer(path):
+    from transformers import BertTokenizer
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + \
+        sorted(set(TOKEN_CHARS))
+    (path / "vocab.txt").write_text("\n".join(vocab))
+    return BertTokenizer(str(path / "vocab.txt"))
+
+
+def write_checkpoint(path, config, state_dict, fmt="safetensors",
+                     shards=2, tokenizer=True):
+    """An HF-style checkpoint directory: ``config.json``, the state dict
+    in ``shards`` files (``safetensors`` through the package's
+    ``safetensors.torch.save_file``, or ``bin`` through ``torch.save``)
+    and, with ``tokenizer``, the tiny BertTokenizer's files."""
+    from safetensors.torch import save_file
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    config.save_pretrained(str(path))
+    sd = {k: v.detach().cpu().contiguous().clone()
+          for k, v in state_dict.items()}
+    keys = sorted(sd)
+    for i in range(shards):
+        part = {k: sd[k] for k in keys[i::shards]}
+        stem = f"{i + 1:05d}-of-{shards:05d}"
+        if fmt == "safetensors":
+            save_file(part, str(path / f"model-{stem}.safetensors"))
+        else:
+            torch.save(part, str(path / f"pytorch_model-{stem}.bin"))
+    if tokenizer:
+        _bert_tokenizer(path).save_pretrained(str(path))
+    return path
 
 
 def test_generate_matches_jax(jax_side, port_model):
@@ -408,9 +450,12 @@ def test_engine_backpressure_and_config_gates(port_model):
 def test_reference_config_fields_all_load():
     """Every field of the reference's ``EngineConfig`` and
     ``ServerConfig`` is a field of the port's; the reference's defaults
-    load, the speculative knobs load at any valid value, and a value
-    other than the default of a feature the port lacks raises
-    ``NotImplementedError`` (never ``TypeError``)."""
+    load (its ``engine`` "simple" among them), the speculative knobs,
+    ``debug_ring``, ``journal_ring``, ``drain_timeout_s``, ``dump_dir``,
+    ``log_level`` and ``engine="simple"`` load at any valid value, and a
+    value other than the default of a feature the port lacks (``phase``,
+    ``peers``, ``aot_args``) raises ``NotImplementedError`` (never
+    ``TypeError``)."""
     import dataclasses
 
     from fengshen_tpu.api.main import ServerConfig as JaxServerConfig
@@ -421,20 +466,26 @@ def test_reference_config_fields_all_load():
         port = {f.name for f in dataclasses.fields(port_cls)}
         assert ref <= port, sorted(ref - port)
     EngineConfig(**dataclasses.asdict(JaxEngineConfig()))
-    defaults = dataclasses.asdict(JaxServerConfig())
-    defaults.pop("engine")                  # the reference's is "simple"
-    ServerConfig(**defaults)
+    assert ServerConfig(**dataclasses.asdict(JaxServerConfig())).engine == \
+        "simple"
     for kw in (dict(spec_gamma=6), dict(spec_ngram=3),
-               dict(spec_draft_layers=4)):
+               dict(spec_draft_layers=4), dict(debug_ring=8),
+               dict(journal_ring=16)):
         assert dataclasses.asdict(EngineConfig(**kw)).items() >= kw.items()
-    for kw in (dict(debug_ring=8), dict(journal_ring=16)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    for kw in (dict(debug_ring=0), dict(journal_ring=0)):
+        with pytest.raises(ValueError):
             EngineConfig(**kw)
-    for kw in (dict(phase="prefill"), dict(drain_timeout_s=5.0),
-               dict(peers=("http://a:1",)), dict(dump_dir="/tmp/x"),
-               dict(log_level="debug"), dict(aot_args={"cache_dir": "d"})):
+    for kw in (dict(drain_timeout_s=5.0), dict(dump_dir="/tmp/x"),
+               dict(log_level="debug"), dict(engine="simple"),
+               dict(engine="continuous")):
+        assert dataclasses.asdict(ServerConfig(**kw)).items() >= kw.items()
+    for kw in (dict(phase="prefill"), dict(peers=("http://a:1",)),
+               dict(aot_args={"cache_dir": "d"}),
+               dict(engine="batch_image")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ServerConfig(**kw)
+    with pytest.raises(ValueError):
+        ServerConfig(engine="fast")
 
 
 def test_reference_config_file_loads(tmp_path):
@@ -581,17 +632,22 @@ def test_stdlib_server_round_trip(jax_side, port_refs):
         engine.stop()
 
 
-def test_main_serves_from_a_config(tmp_path):
-    """``python -m fengshen_tpu_torch.api.main --config`` on port 0: it
-    prints the bound port, answers a POST, and stops on SIGTERM."""
-    LlamaConfig(**CFG).save_pretrained(str(tmp_path / "model"))
+def test_main_serves_from_a_config(tmp_path, port_model):
+    """``python -m fengshen_tpu_torch.api.main --config`` on port 0 over a
+    checkpoint directory (weights and tokenizer): it prints the bound
+    port, answers ``/healthz`` 200 once warm and a POST, and on SIGTERM
+    drains and exits 0, leaving its drain bundle in ``dump_dir``. The one
+    test that sends a real SIGTERM, to its own subprocess."""
+    model_dir = write_checkpoint(tmp_path / "model", port_model.config,
+                                 port_model.state_dict())
     cfg_path = tmp_path / "server.json"
     cfg_path.write_text(json.dumps({
-        "SERVER": {"host": "127.0.0.1", "port": 0, "device": "cpu"},
-        "ENGINE": {"num_slots": 2, "buckets": [8]},
-        "PIPELINE": {"task": "text_generation",
-                     "model": str(tmp_path / "model"), "seed": 3,
-                     "max_new_tokens": 4}}))
+        "SERVER": {"host": "127.0.0.1", "port": 0, "device": "cpu",
+                   "engine": "continuous", "drain_timeout_s": 20,
+                   "dump_dir": str(tmp_path / "dumps")},
+        "ENGINE": {"num_slots": 2, "buckets": [8, 16]},
+        "PIPELINE": {"task": "text_generation", "model": str(model_dir),
+                     "seed": 3, "max_new_tokens": 4}}))
     env = dict(os.environ, OMP_NUM_THREADS="1")
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.Popen(
@@ -606,12 +662,32 @@ def test_main_serves_from_a_config(tmp_path):
         while "listening on" not in line:
             line = lines.get(timeout=120)   # raises queue.Empty on a hang
         port = int(line.rsplit(":", 1)[1])
-        out = _post(port, {"input_text": "5 7 9"})
+        _wait_ready(port)
+        out = _post(port, {"input_text": TEXTS[0]})
         assert out["generated_tokens"] == 4
-        assert len(out["result"].split()) == 4
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
     finally:
-        proc.terminate()
-        proc.wait(timeout=30)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    bundles = sorted(p.name for p in (tmp_path / "dumps").iterdir())
+    assert bundles and bundles[-1].endswith("sigterm_drain")
+
+
+def _wait_ready(port, timeout=120.0):
+    """Poll ``/healthz`` until it answers 200."""
+    import time
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                        timeout=10) as r:
+                return json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"never ready: {e.read()!r}") from e
+            time.sleep(0.1)
 
 
 # -- speculative serving (mirroring tests/test_serving_spec.py) ------------
@@ -785,8 +861,8 @@ def test_spec_stats_keys_and_nonspec_shape_unchanged(port_model):
     assert st["spec_mode"] == "prompt_lookup" and st["spec_gamma"] == 4
     assert st["spec_drafted_total"] > 0
     assert 0 <= st["spec_accepted_total"] <= st["spec_drafted_total"]
-    assert st["spec_acceptance_rate"] == pytest.approx(
-        st["spec_accepted_total"] / st["spec_drafted_total"])
+    assert st["spec_acceptance_rate"] == round(
+        st["spec_accepted_total"] / st["spec_drafted_total"], 4)
 
 
 CONFIG_GRID = [dict(), dict(do_sample=True, top_k=4),
@@ -917,26 +993,29 @@ def test_controls_engine_matches_jax_engine(jax_side, port_model,
             assert len(set(tokens)) == len(tokens)
 
 
-def test_sampled_spec_served_from_a_config_over_http(tmp_path, jax_side):
-    """PIPELINE sampling settings and ENGINE spec fields from a server
-    config file reach the engine; a request's ``request_id`` sets its
-    seed, so the same id draws the same tokens; /stats shows the spec
-    section."""
+def test_sampled_spec_served_from_a_config_over_http(tmp_path, port_model):
+    """PIPELINE sampling settings (``seed`` the sampling seed, as in the
+    reference) and ENGINE spec fields from a server config file over a
+    checkpoint directory reach the engine; a request's ``request_id``
+    sets its seed, so the same id draws the same tokens; /stats shows
+    the spec section."""
     from fengshen_tpu_torch.api.main import (_resolve_pipeline,
                                              create_continuous_engine,
                                              load_config)
-    LlamaConfig(**CFG).save_pretrained(str(tmp_path / "model"))
+    model_dir = write_checkpoint(tmp_path / "model", port_model.config,
+                                 port_model.state_dict())
     path = tmp_path / "server.json"
     path.write_text(json.dumps({
-        "SERVER": {"host": "127.0.0.1", "port": 0, "device": "cpu"},
+        "SERVER": {"host": "127.0.0.1", "port": 0, "device": "cpu",
+                   "engine": "continuous"},
         "ENGINE": {"num_slots": 2, "buckets": [16], "spec_mode":
                    "self_draft", "spec_gamma": 3, "spec_draft_layers": 1},
-        "PIPELINE": {"task": "text_generation",
-                     "model": str(tmp_path / "model"), "seed": 3,
-                     "max_new_tokens": 8, "do_sample": True,
+        "PIPELINE": {"task": "text_generation", "model": str(model_dir),
+                     "seed": 3, "max_new_tokens": 8, "do_sample": True,
                      "temperature": 0.7, "top_k": 5}}))
     server_cfg, pipe_cfg = load_config(str(path))
     pipe = _resolve_pipeline(pipe_cfg, server_cfg.device)
+    assert pipe.seed == 3
     engine = create_continuous_engine(pipe, server_cfg.engine_args)
     cfg = engine.config
     assert (cfg.do_sample, cfg.top_k, cfg.temperature, cfg.seed) == \
@@ -950,7 +1029,7 @@ def test_sampled_spec_served_from_a_config_over_http(tmp_path, jax_side):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        text = " ".join(map(str, _prompts()[2]))
+        text = TEXTS[1]
         a = _post(port, {"input_text": text, "request_id": "same"})
         b = _post(port, {"input_text": text, "request_id": "same"})
         c = _post(port, {"input_text": text, "request_id": "other"})
@@ -967,3 +1046,790 @@ def test_sampled_spec_served_from_a_config_over_http(tmp_path, jax_side):
         engine.stop()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+# -- the serving surface: journal, streams, resume, timelines, drain ----------
+
+SURFACE_LAYOUTS = {"slot": {}, "paged": dict(kv_layout="paged",
+                                             kv_block_size=8)}
+#: the resumed request: prompt 0's first RESUME_K tokens are carried
+RESUME_K = 4
+
+
+def _surface_config(layout, **kw):
+    return dict(num_slots=2, buckets=(8, 16), max_new_tokens=MAX_NEW,
+                max_queue=16, **SURFACE_LAYOUTS[layout], **kw)
+
+
+def _drive_surface(eng, errors):
+    """The same request sequence on either package's engine: four
+    streamed requests (staggered, through a pool of two lanes), their
+    stream events, journal entries and timelines; a resume of request 0
+    from its first RESUME_K tokens; then a drain with one lane running
+    and one queued, and the refusals around it. Returns what each step
+    gave, in plain Python values."""
+    prompts = _prompts()
+    ids = [f"s{i}" for i in range(len(prompts))]
+    reqs = [eng.submit(p, request_id=i, stream=True)
+            for p, i in zip(prompts[:2], ids)]
+    for _ in range(3):
+        eng.step()
+    with pytest.raises(errors["DuplicateRequest"]):
+        eng.submit(prompts[0], request_id=ids[0])
+    reqs += [eng.submit(p, request_id=i, stream=True)
+             for p, i in zip(prompts[2:], ids[2:])]
+    eng.run_until_idle()
+    out = {"tokens": [r.tokens for r in reqs],
+           "events": [list(eng.streams.get(i).events(0, timeout=5))
+                      for i in ids],
+           "partial": [eng.partial(i) for i in ids],
+           "debug": eng.debug_request(ids[0]),
+           "debug_list": eng.debug_requests()}
+    resumed = eng.submit(prompts[0], request_id="resumed",
+                         resume_tokens=reqs[0].tokens[:RESUME_K],
+                         resume_source="test", stream=True)
+    eng.run_until_idle()
+    out["resumed"] = resumed.tokens
+    out["resumed_partial"] = eng.partial("resumed")
+    out["resumed_events"] = list(
+        eng.attach_stream("resumed").events(RESUME_K - 1, timeout=5))
+    drained = [eng.submit(p, request_id=f"d{i}")
+               for i, p in enumerate(prompts[:3])]
+    eng.step()
+    eng.begin_drain()
+    with pytest.raises(errors["Draining"]):
+        eng.submit(prompts[3])
+    assert not eng.idle() and eng.draining
+    live = eng.live_lane_ids()
+    eng.run_until_idle()
+    out["drain"] = dict(live=live, idle=eng.idle(),
+                        states=[(r.state, r.finish_reason, len(r.tokens))
+                                for r in drained])
+    out["stats"] = eng.stats()
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_surface(jax_side):
+    """The JAX engine's answers to :func:`_drive_surface`, per layout."""
+    from fengshen_tpu.serving import ContinuousBatchingEngine as JaxEngine
+    from fengshen_tpu.serving import Draining as JaxDraining
+    from fengshen_tpu.serving import DuplicateRequest as JaxDuplicate
+    from fengshen_tpu.serving import EngineConfig as JaxEngineConfig
+    model = JaxLlama(JaxLlamaConfig(**CFG))
+    return {layout: _drive_surface(
+        JaxEngine(model, jax_side[0],
+                  JaxEngineConfig(**_surface_config(layout))),
+        {"Draining": JaxDraining, "DuplicateRequest": JaxDuplicate})
+        for layout in SURFACE_LAYOUTS}
+
+
+def _event_names(d):
+    return [e["event"] for e in d["events"]]
+
+
+@pytest.mark.parametrize("layout", list(SURFACE_LAYOUTS))
+def test_engine_surface_matches_jax(jax_surface, port_model, port_refs,
+                                    layout):
+    """Greedy, slot and paged: streamed tokens equal the blocking ones
+    (``generate``'s) and the JAX engine's, event for event; ``partial``
+    equals the JAX ``partial`` (but for the measured ``ttft_s``); the
+    ``resume_tokens`` tail equals the uninterrupted run and the JAX
+    engine's resume; the timelines have the reference's keys and event
+    names; a live duplicate id raises ``DuplicateRequest``;
+    ``begin_drain`` makes ``submit`` raise ``Draining``, flushes the
+    queue and lets the running lanes finish."""
+    from fengshen_tpu_torch.serving import Draining, DuplicateRequest
+    eng = ContinuousBatchingEngine(
+        port_model, EngineConfig(**_surface_config(layout)), device="cpu")
+    got = _drive_surface(eng, {"Draining": Draining,
+                               "DuplicateRequest": DuplicateRequest})
+    want = jax_surface[layout]
+    assert got["tokens"] == port_refs == want["tokens"]
+    assert got["events"] == want["events"]
+    for tokens, events in zip(got["tokens"], got["events"]):
+        assert [e[2] for e in events[:-1]] == tokens
+        assert events[-1] == ("done", len(tokens), "length")
+    for mine, theirs in zip(got["partial"] + [got["resumed_partial"]],
+                            want["partial"] + [want["resumed_partial"]]):
+        assert mine.keys() == theirs.keys()
+        assert {k: v for k, v in mine.items() if k != "ttft_s"} == \
+            {k: v for k, v in theirs.items() if k != "ttft_s"}
+    assert got["resumed"] == got["tokens"][0] == want["resumed"]
+    assert got["resumed_partial"]["resumed_tokens"] == RESUME_K
+    assert got["resumed_events"] == want["resumed_events"]
+    assert got["resumed_events"][0] == ("token", RESUME_K - 1,
+                                        got["tokens"][0][RESUME_K - 1])
+    assert got["debug"].keys() == want["debug"].keys()
+    assert _event_names(got["debug"]) == _event_names(want["debug"])
+    assert got["debug"]["phases"].keys() == want["debug"]["phases"].keys()
+    assert got["debug_list"].keys() == want["debug_list"].keys()
+    for key in ("in_flight", "recent"):
+        assert [sorted(r) for r in got["debug_list"][key]] == \
+            [sorted(r) for r in want["debug_list"][key]]
+    assert got["drain"] == want["drain"]
+    assert [s[:2] for s in got["drain"]["states"]] == [
+        ("finished", "length"), ("finished", "length"),
+        ("rejected", "draining")]
+    assert set(want["stats"]) <= set(got["stats"])
+    for key in ("admitted", "completed", "rejected_draining",
+                "rejected_duplicate", "decode_ticks", "decode_tokens",
+                "prefills_per_bucket", "streams_active", "draining"):
+        assert got["stats"][key] == want["stats"][key], key
+
+
+def test_engine_resume_validates_as_the_reference(port_model, port_refs):
+    """A resume that leaves nothing to decode raises ``ValueError``; the
+    resumed prefix counts toward ``max_new_tokens`` and toward the
+    bucket (prompt 16 + 3 carried tokens needs a bucket the ladder lacks,
+    413); a resume one token short of the end decodes exactly one."""
+    eng = ContinuousBatchingEngine(
+        port_model, EngineConfig(**_surface_config("slot")), device="cpu")
+    prompts = _prompts()
+    with pytest.raises(ValueError, match="nothing to decode"):
+        eng.submit(prompts[0], resume_tokens=port_refs[0])
+    with pytest.raises(PromptTooLong):
+        eng.submit(prompts[2], resume_tokens=port_refs[2][:4])
+    req = eng.submit(prompts[0], resume_tokens=port_refs[0][:-1])
+    eng.run_until_idle()
+    assert req.tokens == port_refs[0]
+    assert eng.stats()["decode_ticks"] == 1
+
+
+# -- checkpoint directories ---------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tied_params():
+    """Seeded numpy params of the tied-head variant of CFG (the JAX
+    package's init, as ``jax_side`` makes the untied ones)."""
+    model = JaxLlama(JaxLlamaConfig(**CFG, tie_word_embeddings=True))
+    params = model.init(jax.random.PRNGKey(1),
+                        jnp.zeros((1, 4), jnp.int32))["params"]
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _ckpt_params(tied, jax_side, tied_params):
+    return (tied_params if tied else jax_side[0]), \
+        LlamaConfig(**CFG, tie_word_embeddings=tied)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+@pytest.mark.parametrize("fmt", ["safetensors", "bin", "both"])
+def test_load_hf_pretrained_matches_jax(tmp_path, jax_side, tied_params,
+                                        fmt, tied):
+    """``load_hf_pretrained`` reads safetensors shards, ``.bin`` shards,
+    and a directory with both (the safetensors win: the ``.bin`` files
+    there hold other weights). Every parameter equals the written tensor
+    bitwise, and the port's logits equal the JAX package's from its own
+    ``load_hf_pretrained`` on the same directory within 1e-5."""
+    from fengshen_tpu.models.llama.convert import \
+        load_hf_pretrained as jax_load
+    from fengshen_tpu_torch.models.llama import load_hf_pretrained
+    params, cfg = _ckpt_params(tied, jax_side, tied_params)
+    state = params_from_jax(params, cfg)
+    path = tmp_path / "ckpt"
+    write_checkpoint(path, cfg, state, "bin" if fmt == "bin" else
+                     "safetensors", tokenizer=False)
+    if fmt == "both":
+        write_checkpoint(path, cfg, {k: v + 1.0 for k, v in state.items()},
+                         "bin", shards=1, tokenizer=False)
+    config, model = load_hf_pretrained(str(path), device="cpu")
+    assert config.tie_word_embeddings == tied
+    assert (model.lm_head is None) == tied
+    loaded = model.state_dict()
+    assert loaded.keys() == state.keys()
+    for name, tensor in state.items():
+        assert torch.equal(loaded[name], tensor), name
+    jcfg, jparams = jax_load(str(path))
+    ids = np.asarray([_prompts()[1]])
+    want = np.asarray(JaxLlama(jcfg).apply({"params": jparams},
+                                           jnp.asarray(ids)))
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids).long()).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_load_hf_pretrained_refuses_what_it_cannot_load(tmp_path,
+                                                        jax_side):
+    """A directory with no weight files raises, naming the patterns it
+    looked for; a missing, an unexpected or a misshapen tensor raises
+    naming the tensor (and ``torch_to_params`` checks the same names,
+    dropping a tied head's alias); HF's rotary ``inv_freq`` buffers are
+    skipped; the port never makes weights from a seed instead."""
+    from fengshen_tpu_torch.models.llama import (load_hf_pretrained,
+                                                 torch_to_params)
+    cfg = LlamaConfig(**CFG)
+    state = params_from_jax(jax_side[0], cfg)
+    empty = tmp_path / "empty"
+    cfg.save_pretrained(str(empty))
+    with pytest.raises(FileNotFoundError,
+                       match=r"\*\.safetensors and pytorch_model\*\.bin"):
+        load_hf_pretrained(str(empty), device="cpu")
+    with pytest.raises(FileNotFoundError, match="no weights"):
+        Pipeline(model=str(empty), tokenizer=IdTokenizer(), device="cpu")
+    name = "model.layers.1.mlp.up_proj.weight"
+    cases = {
+        "missing": ({k: v for k, v in state.items() if k != name},
+                    KeyError, name),
+        "unexpected": ({**state, "model.layers.9.mlp.up_proj.weight":
+                        state[name]}, KeyError, "layers.9"),
+        "misshapen": ({**state, name: state[name][:, :3]}, ValueError,
+                      name)}
+    for case, (sd, err, match) in cases.items():
+        path = write_checkpoint(tmp_path / case, cfg, sd, tokenizer=False)
+        with pytest.raises(err, match=match):
+            load_hf_pretrained(str(path), device="cpu")
+        if err is KeyError:
+            with pytest.raises(err, match=match):
+                torch_to_params(sd, cfg)
+    tied = LlamaConfig(**CFG, tie_word_embeddings=True)
+    assert torch_to_params(state, tied).keys() == \
+        state.keys() - {"lm_head.weight"}
+    freq = write_checkpoint(
+        tmp_path / "freq", cfg,
+        {**state, "model.layers.0.self_attn.rotary_emb.inv_freq":
+         torch.ones(4)}, "bin", tokenizer=False)
+    _, model = load_hf_pretrained(str(freq), device="cpu")
+    assert torch.equal(model.state_dict()[name], state[name])
+
+
+@pytest.fixture(scope="module")
+def checkpoint_dir(tmp_path_factory, jax_side):
+    """CFG's JAX weights as an HF checkpoint directory with the tiny
+    BertTokenizer."""
+    cfg = LlamaConfig(**CFG)
+    return write_checkpoint(tmp_path_factory.mktemp("ckpt"), cfg,
+                            params_from_jax(jax_side[0], cfg))
+
+
+def test_pipeline_from_a_checkpoint_matches_jax(checkpoint_dir):
+    """``Pipeline(model=dir)`` loads the weights and the tokenizer
+    (``AutoTokenizer``) as the JAX pipeline does: the same encode and
+    decode, the same greedy text from the one-request path, which the
+    continuous engine serves too; ``generate_ids`` counts only real
+    tokens (up to eos) into the global counter."""
+    from fengshen_tpu.pipelines.text_generation import \
+        Pipeline as JaxPipeline
+    from fengshen_tpu_torch.observability import get_registry
+    mine = Pipeline(model=str(checkpoint_dir), max_new_tokens=6,
+                    device="cpu")
+    ref = JaxPipeline(model=str(checkpoint_dir), max_new_tokens=6)
+    for text in TEXTS:
+        assert mine.encode(text).tolist() == ref.encode(text).tolist()
+        ids = mine.encode(text)
+        assert mine.decode(ids) == ref.decode(ids)
+    texts = [mine(t) for t in TEXTS]
+    assert texts == [ref(t) for t in TEXTS]
+    engine = ContinuousBatchingEngine(
+        mine.module, EngineConfig(**mine.engine_config_kwargs(),
+                                  num_slots=2, buckets=(8, 16)),
+        device="cpu")
+    served = engine.generate_all([mine.encode(t) for t in TEXTS])
+    assert [mine.decode(t) for t in served] == texts
+    counter = get_registry().counter(
+        "fstpu_pipeline_generated_tokens_total",
+        "tokens generated by the legacy batch-1 pipeline path")
+    first = mine.generate_ids(mine.encode(TEXTS[0]), 6)
+    mine.eos_token_id = first[2]
+    before = counter.value()
+    out = mine.generate_ids(mine.encode(TEXTS[0]), 6)
+    assert len(out) == 6 and counter.value() - before == 3
+
+
+def test_tokenizer_path_needs_transformers(checkpoint_dir, monkeypatch):
+    """Without ``transformers`` the tokenizer of a checkpoint directory
+    raises ``ImportError`` naming it (never falls back to
+    ``IdTokenizer``); an injected tokenizer needs no ``transformers``."""
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    with pytest.raises(ImportError, match="'transformers'"):
+        Pipeline(model=str(checkpoint_dir), device="cpu")
+    pipe = Pipeline(model=str(checkpoint_dir), tokenizer=IdTokenizer(),
+                    device="cpu")
+    assert isinstance(pipe.tokenizer, IdTokenizer)
+
+
+# -- the HTTP surface ---------------------------------------------------------
+
+class _Served:
+    """A stdlib server on 127.0.0.1:0 in a thread; ``close()`` shuts it
+    down and stops the engine."""
+
+    def __init__(self, build, server_cfg, pipeline, engine, **kw):
+        self.server = build(server_cfg, PipelineConfig(
+            task="text_generation"), pipeline=pipeline, engine=engine, **kw)
+        self.engine = engine
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        if self.engine is not None:
+            self.engine.stop()
+        self.thread.join(timeout=10)
+
+
+def _local(**kw):
+    return ServerConfig(host="127.0.0.1", port=0, device="cpu", **kw)
+
+
+def _get(port, path, timeout=30):
+    """(status, body) of a GET; JSON bodies parsed."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            code, raw, ctype = r.status, r.read(), r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        code, raw, ctype = e.code, e.read(), e.headers["Content-Type"]
+    return code, (json.loads(raw) if "json" in ctype else raw.decode())
+
+
+def _post_status(port, path, payload, headers=None, timeout=60):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _stream(port, payload, headers=None, limit=None, timeout=60):
+    """POST to the stream route and parse its SSE frames with the port's
+    ``iter_sse``; with ``limit``, stop (and drop the connection) after
+    that many token frames."""
+    from fengshen_tpu_torch.streaming import iter_sse
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/api/text_generation/stream",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    frames = []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        assert r.headers["Content-Type"] == "text/event-stream"
+        for frame in iter_sse(r):
+            frames.append(frame)
+            if limit is not None and len(frames) == limit:
+                break
+    return frames
+
+
+def _stream_tokens(frames):
+    toks = [f for f in frames if f["event"] == "token"]
+    assert [f["id"] for f in toks] == list(range(toks[0]["id"],
+                                                 toks[0]["id"] + len(toks)))
+    return [f["data"]["token"] for f in toks]
+
+
+def test_stream_route_equals_blocking_and_reconnects_gaplessly(
+        port_model, port_refs):
+    """Four concurrent streams give the blocking route's tokens (each
+    ``token`` event's id is its index, then one ``done`` event with the
+    result); a client that drops after three tokens reconnects with
+    ``Last-Event-ID: 2`` (and again with a body ``last_event_id``) and
+    gets the rest with no gap; an unknown id answers 404."""
+    from concurrent.futures import ThreadPoolExecutor
+    pipe = Pipeline(module=port_model, tokenizer=IdTokenizer(),
+                    max_new_tokens=MAX_NEW, device="cpu")
+    engine = start_continuous_engine(pipe, _surface_config("paged"))
+    served = _Served(build_stdlib_server, _local(), pipe, engine)
+    try:
+        texts = [" ".join(map(str, p)) for p in _prompts()]
+        with ThreadPoolExecutor(4) as pool:
+            streams = list(pool.map(
+                lambda t: _stream(served.port, {"input_text": t}), texts))
+        for frames, ref in zip(streams, port_refs):
+            assert _stream_tokens(frames) == ref
+            assert frames[-1]["event"] == "done"
+            assert frames[-1]["id"] == len(ref)
+            assert frames[-1]["data"]["result"] == " ".join(map(str, ref))
+        blocking = [_post(served.port, {"input_text": t})["result"]
+                    for t in texts]
+        assert blocking == [" ".join(map(str, r)) for r in port_refs]
+        head = _stream(served.port, {"input_text": texts[0],
+                                     "request_id": "rc"}, limit=3)
+        tail = _stream(served.port, {"request_id": "rc"},
+                       headers={"Last-Event-ID": "2"})
+        assert _stream_tokens(head) + _stream_tokens(tail) == port_refs[0]
+        again = _stream(served.port, {"request_id": "rc",
+                                      "last_event_id": 6})
+        assert _stream_tokens(again) == port_refs[0][7:]
+        assert _post_status(served.port, "/api/text_generation/stream",
+                            {"request_id": "nope", "last_event_id": 0}
+                            )[0] == 404
+        stats = engine.stats()
+        assert stats["streams_active"] == 0
+        text = _render_text(engine)
+        assert "fstpu_stream_reconnects_total 2" in text
+        assert f"fstpu_stream_tokens_total {4 * MAX_NEW + MAX_NEW}" in text
+    finally:
+        served.close()
+
+
+def _render_text(engine):
+    from fengshen_tpu_torch.observability import render_prometheus
+    return render_prometheus(engine.metrics.registry)
+
+
+def _families(text):
+    """{family: sorted label names} from ``# TYPE`` lines and samples."""
+    fams, labels = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE"):
+            fams[line.split()[2]] = set()
+        elif line and not line.startswith("#"):
+            name = line.split("{")[0].split()[0]
+            base = next((f for f in fams if name in
+                         (f, f + "_bucket", f + "_sum", f + "_count")), None)
+            if "{" in line:
+                keys = {kv.split("=")[0] for kv in
+                        line[line.index("{") + 1:line.index("}")].split(
+                            ",")} - {"le"}
+                labels.setdefault(base, set()).update(keys)
+    return {f: sorted(labels.get(f, ())) for f in fams}
+
+
+def _samples(text):
+    """{sample name with labels: value} of a Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def _http_sequence(port, texts):
+    """The same request sequence for either package's server: a
+    blocking POST, a traced one, a stream, a 413, a 422, and the read
+    routes."""
+    trace = "00-" + "ab" * 16 + "-" + "cd" * 8 + "-01"
+    out = [_post_status(port, "/api/text_generation",
+                        {"input_text": texts[0]})]
+    out.append(_post_status(port, "/api/text_generation",
+                            {"input_text": texts[1], "request_id": "t1"},
+                            headers={"traceparent": trace}))
+    out.append(_stream_tokens(_stream(port, {"input_text": texts[2],
+                                             "request_id": "s2"})))
+    out.append(_post_status(port, "/api/text_generation",
+                            {"input_text": " ".join(["3"] * 17)})[0])
+    out.append(_post_status(port, "/api/text_generation",
+                            {"input_text": "5", "max_new_tokens": 0})[0])
+    out.append(_get(port, "/partial/t1"))
+    out.append(_get(port, "/debug/requests/t1"))
+    out.append(_get(port, "/debug/requests"))
+    out.append(_get(port, "/stats"))
+    out.append(_get(port, "/healthz"))
+    return out
+
+
+def test_http_surface_matches_jax_server(jax_side, port_model, port_refs):
+    """The port's server and the JAX package's stdlib server, the same
+    weights, engine settings and request sequence: the same bodies
+    (results, ``trace_id`` echoed, 413/422, ``/partial``, the debug
+    payloads' keys and event names, ``/stats`` keys, ``/healthz``);
+    ``/metrics`` has the JAX server's engine families with the same
+    label names and values, and the same HTTP counts by route and code."""
+    from fengshen_tpu.api.main import ServerConfig as JaxServerConfig
+    from fengshen_tpu.api.main import build_stdlib_server as jax_build
+    from fengshen_tpu.api.main import \
+        start_continuous_engine as jax_start
+    from fengshen_tpu.pipelines.text_generation import \
+        Pipeline as JaxPipeline
+    texts = [" ".join(map(str, p)) for p in _prompts()]
+    pipe = Pipeline(module=port_model, tokenizer=IdTokenizer(),
+                    max_new_tokens=MAX_NEW, device="cpu")
+    jpipe = JaxPipeline(module=JaxLlama(JaxLlamaConfig(**CFG)),
+                        params=jax_side[0], tokenizer=IdTokenizer(),
+                        max_new_tokens=MAX_NEW)
+    from fengshen_tpu.observability import \
+        render_prometheus as jax_render
+    from fengshen_tpu_torch.observability import render_prometheus
+    runs = {}
+    for name, build, start, p, cfg, render in (
+            ("port", build_stdlib_server, start_continuous_engine, pipe,
+             _local(engine="continuous"), render_prometheus),
+            ("jax", jax_build, jax_start, jpipe,
+             JaxServerConfig(host="127.0.0.1", port=0,
+                             engine="continuous"), jax_render)):
+        engine = start(p, _surface_config("slot"))
+        served = _Served(build, cfg, p, engine)
+        try:
+            before = _samples(_get(served.port, "/metrics")[1])
+            seq = _http_sequence(served.port, texts)
+            after = _get(served.port, "/metrics")[1]
+        finally:
+            served.close()
+        runs[name] = (seq, before, after,
+                      render(engine.metrics.registry))
+    (mine, m_before, m_after, m_engine), (ref, r_before, r_after,
+                                          r_engine) = \
+        runs["port"], runs["jax"]
+    for (mc, mb), (rc, rb) in zip(mine[:2], ref[:2]):
+        # the port's body adds generated_tokens; ttft_s is measured and
+        # an id the server makes counts per process
+        assert mc == rc == 200
+        assert mb.keys() == rb.keys() | {"generated_tokens"}
+        for key in rb.keys() - {"ttft_s", "request_id"}:
+            assert mb[key] == rb[key], key
+    assert mine[0][1]["result"] == " ".join(map(str, port_refs[0]))
+    assert mine[1][1]["trace_id"] == ref[1][1]["trace_id"] == "ab" * 16
+    assert mine[1][1]["request_id"] == ref[1][1]["request_id"] == "t1"
+    assert mine[2] == ref[2] == port_refs[2]
+    assert mine[3:5] == ref[3:5] == [413, 422]
+    (mc, mp), (rc, rp) = mine[5], ref[5]
+    assert (mc, mp.keys()) == (rc, rp.keys())
+    assert {k: v for k, v in mp.items() if k != "ttft_s"} == \
+        {k: v for k, v in rp.items() if k != "ttft_s"}
+    (mc, md), (rc, rd) = mine[6], ref[6]
+    assert mc == rc == 200 and md.keys() == rd.keys()
+    assert _event_names(md) == _event_names(rd)
+    assert md["trace_id"] == rd["trace_id"] == "ab" * 16
+    assert mine[7][1].keys() == ref[7][1].keys()
+    assert set(ref[8][1]) <= set(mine[8][1])
+    assert mine[9] == ref[9] == (200, {"status": "ok",
+                                       "task": "text_generation",
+                                       "ready": True})
+    assert _families(m_engine) == _families(r_engine)
+    engine_counters = {k: v for k, v in _samples(r_engine).items()
+                       if "seconds" not in k and "fragmentation" not in k
+                       and "uptime" not in k}
+    mine_counters = _samples(m_engine)
+    for key, value in engine_counters.items():
+        assert mine_counters[key] == value, key
+
+    def http_delta(before, after):
+        now = _samples(after)
+        return {k: v - before.get(k, 0) for k, v in now.items()
+                if k.startswith("fstpu_http_requests_total")
+                and v != before.get(k, 0)}
+    assert http_delta(m_before, m_after) == http_delta(r_before, r_after)
+    fams = _families(m_after)
+    for fam, labels in _families(r_after).items():
+        if fam.startswith(("fstpu_http", "fstpu_span", "fstpu_serving",
+                           "fstpu_request", "fstpu_kv", "fstpu_stream")):
+            assert fams.get(fam) == labels, fam
+    spans = {k for k, v in _samples(m_after).items()
+             if k.startswith("fstpu_span_seconds_count")}
+    for name in ("serving/admit", "serving/prefill", "serving/decode"):
+        assert f'fstpu_span_seconds_count{{span="{name}"}}' in spans
+
+
+def test_duplicate_id_dump_and_debug_routes(tmp_path, port_model,
+                                            port_refs):
+    """A POST whose ``request_id`` is live answers 409; ``POST
+    /debug/dump`` writes a bundle into the recorder's ``dump_dir`` (the
+    engine's stats, config and timelines); ``/debug/requests`` lists the
+    queued request, and ``/partial/<id>`` equals the engine's journal
+    entry plus its decoded result once it finished."""
+    from fengshen_tpu_torch.api.main import create_continuous_engine
+    from fengshen_tpu_torch.observability import FlightRecorder
+    pipe = Pipeline(module=port_model, tokenizer=IdTokenizer(),
+                    max_new_tokens=MAX_NEW, device="cpu")
+    recorder = FlightRecorder(dump_dir=str(tmp_path / "dumps"))
+    engine = create_continuous_engine(pipe, _surface_config("slot"),
+                                      recorder=recorder)
+    engine.warmup()
+    served = _Served(build_stdlib_server, _local(dump_dir=str(
+        tmp_path / "dumps")), pipe, engine, recorder=recorder)
+    try:
+        # the engine is not ticking yet: the request stays queued
+        req = engine.submit(_prompts()[0], request_id="dup")
+        code, body = _post_status(served.port, "/api/text_generation",
+                                  {"input_text": "5 6", "request_id": "dup"})
+        assert code == 409 and "dup" in body["error"]
+        code, body = _get(served.port, "/debug/requests")
+        assert [r["request_id"] for r in body["in_flight"]] == ["dup"]
+        code, body = _post_status(served.port, "/debug/dump", {})
+        assert code == 200
+        bundle = Path(body["bundle"])
+        assert bundle.parent == tmp_path / "dumps"
+        manifest = json.loads((bundle / "manifest.json").read_text())
+        assert manifest["reason"] == "on_demand"
+        assert manifest["files"] == ["engine.json", "events.jsonl"]
+        dumped = json.loads((bundle / "engine.json").read_text())
+        assert dumped["stats"]["rejected_duplicate"] == 1
+        assert [r["request_id"] for r in dumped["requests"]] == ["dup"]
+        engine.start()
+        assert req.wait(timeout=60)
+        code, body = _get(served.port, "/partial/dup")
+        assert code == 200
+        assert body == dict(engine.partial("dup"), result=" ".join(
+            map(str, port_refs[0])))
+        code, body = _get(served.port, "/debug/requests/dup")
+        assert code == 200 and _event_names(body)[-1] == "finished"
+        assert _get(served.port, "/debug/requests/none")[0] == 404
+        assert _get(served.port, "/partial/none")[0] == 404
+    finally:
+        served.close()
+
+
+def test_simple_engine_serves_generate_tokens(checkpoint_dir):
+    """``engine: "simple"``: one pipeline call per POST behind a lock,
+    giving the JAX pipeline's text (``generate``'s greedy tokens) for
+    its prompt; ``/stats`` is the reference's simple payload, the stream
+    route answers 501 and ``/partial`` 404, and ``/metrics`` counts the
+    pipeline's tokens."""
+    from fengshen_tpu.pipelines.text_generation import \
+        Pipeline as JaxPipeline
+    from fengshen_tpu_torch.api.main import SimpleEngine
+    pipe = Pipeline(model=str(checkpoint_dir), max_new_tokens=6,
+                    device="cpu")
+    ref = JaxPipeline(model=str(checkpoint_dir), max_new_tokens=6)
+    engine = SimpleEngine(pipe)
+    assert engine.warmup() > 0
+    served = _Served(build_stdlib_server, _local(engine="simple"), pipe,
+                     engine)
+    try:
+        for text in TEXTS[:2]:
+            code, body = _post_status(served.port, "/api/text_generation",
+                                      {"input_text": text})
+            assert (code, body) == (200, {"result": ref(text)})
+        code, body = _post_status(served.port, "/api/text_generation",
+                                  {"input_text": TEXTS[0],
+                                   "max_new_tokens": 2})
+        assert body == {"result": ref(TEXTS[0], max_new_tokens=2)}
+        assert _get(served.port, "/stats") == (200, {
+            "engine": "simple", "task": "text_generation", "phase": "both"})
+        assert _post_status(served.port, "/api/text_generation/stream",
+                            {"input_text": TEXTS[0]})[0] == 501
+        assert _get(served.port, "/partial/x")[0] == 404
+        assert _get(served.port, "/debug/requests")[1] == {
+            "in_flight": [], "recent": [], "debug_ring": 0}
+        metrics = _get(served.port, "/metrics")[1]
+        assert "fstpu_pipeline_generated_tokens_total" in metrics
+        assert 'fstpu_span_seconds_count{span="pipeline/generate"}' in \
+            metrics
+    finally:
+        served.close()
+
+
+@pytest.mark.parametrize("kind", ["continuous", "simple"])
+def test_failed_warmup_never_becomes_ready(port_model, monkeypatch, kind):
+    """A kernel that fails in warmup stops the engine with the reason:
+    ``/healthz`` answers 503 ``engine_stopped`` with the error (never
+    ready, unlike the reference's serve-anyway warmup), and a generate
+    request answers 503."""
+    from fengshen_tpu_torch.api.main import (SimpleEngine,
+                                             _start_warmup_thread,
+                                             create_continuous_engine)
+    from fengshen_tpu_torch.models.llama import modeling_llama
+    from fengshen_tpu_torch.ops.kernels import KernelError
+    pipe = Pipeline(module=port_model, tokenizer=IdTokenizer(),
+                    max_new_tokens=4, device="cpu")
+    engine = SimpleEngine(pipe) if kind == "simple" else \
+        create_continuous_engine(pipe, {"num_slots": 2, "buckets": (8,)})
+
+    def broken(*args, **kwargs):
+        raise KernelError("injected build failure")
+
+    monkeypatch.setattr(modeling_llama, "decode_attention", broken)
+    cfg = _local(engine=kind)
+    ready = _start_warmup_thread(cfg, PipelineConfig(), pipe, engine)
+    served = _Served(build_stdlib_server, cfg, pipe, engine, ready=ready)
+    try:
+        import time
+        deadline = time.monotonic() + 60
+        while engine.stopped_reason() is None:
+            assert time.monotonic() < deadline, "warmup never ended"
+            time.sleep(0.05)
+        code, body = _get(served.port, "/healthz")
+        assert code == 503 and body["ready"] is False
+        assert body["reason"] == "engine_stopped"
+        assert "a failed warmup" in body["error"]
+        assert "injected build failure" in body["error"]
+        assert not ready.is_set()
+        code, body = _post_status(served.port, "/api/text_generation",
+                                  {"input_text": "5 6 7"})
+        assert code == 503 and body["reason"] == "engine_stopped"
+    finally:
+        served.close()
+
+
+def test_drain_finishes_in_flight_and_refuses_new_work(tmp_path, port_model,
+                                                       port_refs):
+    """The SIGTERM drain's body, called directly: the running request
+    finishes with its tokens, the queued one is flushed with 503
+    "draining", a new POST answers 503 "draining", ``/healthz`` answers
+    the reference's draining payload, and once idle the drain dumps a
+    bundle and shuts the server down. ``install_drain_handler`` installs
+    it on SIGTERM and hands back the previous handler, restored here."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fengshen_tpu.api.main import _healthz_payload as jax_healthz
+    from fengshen_tpu_torch.api.main import (_healthz_payload,
+                                             create_continuous_engine,
+                                             drain, install_drain_handler)
+    from fengshen_tpu_torch.observability import FlightRecorder
+    pipe = Pipeline(module=port_model, tokenizer=IdTokenizer(),
+                    max_new_tokens=MAX_NEW, device="cpu")
+    engine = create_continuous_engine(pipe, {"num_slots": 1,
+                                             "buckets": (8, 16)})
+    engine.warmup()
+    recorder = FlightRecorder(dump_dir=str(tmp_path / "dumps"))
+    draining = threading.Event()
+    served = _Served(build_stdlib_server, _local(), pipe, engine,
+                     recorder=recorder, draining=draining)
+    texts = [" ".join(map(str, p)) for p in _prompts()[:2]]
+    pool = ThreadPoolExecutor(2)
+    try:
+        previous = install_drain_handler(served.server, draining,
+                                         engine=engine)
+        try:
+            assert signal.getsignal(signal.SIGTERM) is not previous
+        finally:
+            signal.signal(signal.SIGTERM, previous)
+        import time
+        running = pool.submit(_post_status, served.port,
+                              "/api/text_generation",
+                              {"input_text": texts[0]})
+        while engine.stats()["queue_depth"] < 1:
+            time.sleep(0.01)
+        engine.step()                       # admits it into the one lane
+        queued = pool.submit(_post_status, served.port,
+                             "/api/text_generation",
+                             {"input_text": texts[1]})
+        while engine.stats()["queue_depth"] < 1:
+            time.sleep(0.01)
+        waiter = drain(served.server, draining, engine=engine,
+                       recorder=recorder, poll_s=0.01)
+        assert queued.result(timeout=30) == (503, {
+            "error": "request rejected (draining)", "reason": "draining"})
+        assert _post_status(served.port, "/api/text_generation",
+                            {"input_text": texts[1]}) == (503, {
+                                "error": "replica draining",
+                                "reason": "draining"})
+        code, body = _get(served.port, "/healthz")
+        assert (code, body) == _healthz_payload(
+            "text_generation", None, draining) == jax_healthz(
+            "text_generation", None, draining)
+        assert drain(served.server, draining, engine=engine) is None
+        engine.start()
+        code, body = running.result(timeout=60)
+        assert code == 200
+        assert body["result"] == " ".join(map(str, port_refs[0]))
+        waiter.join(timeout=30)
+        assert not waiter.is_alive()
+        served.thread.join(timeout=10)
+        assert not served.thread.is_alive()
+        bundles = [p.name for p in (tmp_path / "dumps").iterdir()]
+        assert bundles == ["dump-0000-sigterm_drain"]
+    finally:
+        pool.shutdown()
+        served.close()
+
+
+def test_healthz_payloads_are_the_references():
+    """Warmup, draining and ready payloads byte for byte."""
+    from fengshen_tpu.api.main import _healthz_payload as jax_healthz
+    from fengshen_tpu_torch.api.main import _healthz_payload
+    ready, draining = threading.Event(), threading.Event()
+    for step in range(3):
+        for args in ((ready, draining), (None, None), (ready, None),
+                     (None, draining)):
+            got = _healthz_payload("text_generation", *args)
+            want = jax_healthz("text_generation", *args)
+            assert json.dumps(got) == json.dumps(want)
+        (ready if step == 0 else draining).set()

@@ -8,6 +8,10 @@ without one). This file imports no JAX, so the card's machine runs it:
 - K3 counts its launches per query-window length (``"s1"``, ``"s5"``),
   and a speculative engine launches it exactly once per layer per verify
   window (plus once per draft layer per draft step under ``self_draft``).
+- A checkpoint directory loads straight onto the card, every parameter
+  bitwise equal to the tensor written; the stream route through K3
+  gives the blocking route's tokens, and K3's launches are pinned under
+  streaming and under the ``simple`` engine.
 - A greedy speculative engine through K3 serves the tokens of the same
   engine with K3's plain version swapped in. They may part only at a
   near-tie: at a sequence's first disagreement the plain-served
@@ -173,3 +177,148 @@ def test_spec_engine_through_k3_equals_plain(cuda_device, mode, layout,
                            position_ids=(m.cumsum(-1) - 1).clamp(min=0))
         top2 = logits[0, bucket - 1 + t].float().topk(2).values
         assert float(top2[0] - top2[1]) <= MARGIN[dtype], (prompt, t)
+
+
+def _write_safetensors(path, tensors):
+    """A safetensors file from a dict of CPU tensors (the format: an
+    8-byte little-endian header length, the JSON header, the bytes)."""
+    import json
+    import struct
+    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.contiguous().view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_loads_onto_the_card_bitwise(cuda_device, tmp_path,
+                                                dtype):
+    """Two safetensors shards (and a ``.bin`` beside them, which the
+    safetensors win over) load onto the card: every parameter equals the
+    tensor written, bit for bit, in the config's ``param_dtype``."""
+    from fengshen_tpu_torch.models.llama import load_hf_pretrained
+    model = _model(dtype, cuda_device)
+    model.config.save_pretrained(str(tmp_path))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    keys = sorted(state)
+    for i in range(2):
+        _write_safetensors(tmp_path / f"model-{i}.safetensors",
+                           {k: state[k] for k in keys[i::2]})
+    torch.save({k: v + 1 for k, v in state.items()},
+               tmp_path / "pytorch_model.bin")
+    _, loaded = load_hf_pretrained(str(tmp_path), device="cuda")
+    got = loaded.state_dict()
+    assert got.keys() == state.keys()
+    for name, tensor in state.items():
+        assert got[name].device.type == "cuda"
+        assert torch.equal(got[name].cpu(), tensor), name
+
+
+def _http(port, path, payload=None, headers=None):
+    import json
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    return urllib.request.urlopen(req, timeout=120)
+
+
+@pytest.mark.gpu
+def test_stream_route_through_k3_equals_blocking(cuda_device):
+    """Over HTTP on the card: each streamed sequence equals the blocking
+    route's for its prompt, a reconnect after three tokens continues
+    without a gap, and K3 launches exactly once per layer per decode
+    tick (prefills of 16 take the dense route)."""
+    import json
+    import threading
+
+    from fengshen_tpu_torch.api.main import (PipelineConfig, ServerConfig,
+                                             build_stdlib_server,
+                                             start_continuous_engine)
+    from fengshen_tpu_torch.pipelines.text_generation import (IdTokenizer,
+                                                              Pipeline)
+    from fengshen_tpu_torch.streaming import iter_sse
+    model = _model("bfloat16", cuda_device)
+    pipe = Pipeline(module=model, tokenizer=IdTokenizer(),
+                    max_new_tokens=MAX_NEW, device="cuda")
+    engine = start_continuous_engine(pipe, {
+        "num_slots": 3, "buckets": (16,), "kv_layout": "paged",
+        "kv_block_size": 16})
+    server = build_stdlib_server(
+        ServerConfig(host="127.0.0.1", port=0, engine="continuous"),
+        PipelineConfig(), pipeline=pipe, engine=engine)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    entry = get_entry("decode_attention")
+    try:
+        texts = [" ".join(map(str, p)) for p in _prompts()]
+
+        def stream(payload, headers=None, limit=None):
+            frames = []
+            with _http(port, "/api/text_generation/stream", payload,
+                       headers) as r:
+                for f in iter_sse(r):
+                    frames.append(f)
+                    if limit is not None and len(frames) == limit:
+                        break
+            return [f["data"]["token"] for f in frames
+                    if f["event"] == "token"], frames
+
+        reset_launch_counts()
+        before = engine.stats()["decode_ticks"]
+        streamed = [stream({"input_text": t, "request_id": f"g{i}"})[0]
+                    for i, t in enumerate(texts)]
+        ticks = engine.stats()["decode_ticks"] - before
+        assert entry.variants == {"s1": 2 * ticks}
+        blocking = []
+        for t in texts:
+            with _http(port, "/api/text_generation", {"input_text": t}) as r:
+                blocking.append([int(x) for x in
+                                 json.loads(r.read())["result"].split()])
+        assert streamed == blocking
+        head, _ = stream({"input_text": texts[0], "request_id": "rc"},
+                         limit=3)
+        tail, frames = stream({"request_id": "rc"},
+                              headers={"Last-Event-ID": "2"})
+        assert head + tail == blocking[0]
+        assert frames[0]["id"] == 3 and frames[-1]["event"] == "done"
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        thread.join(timeout=10)
+
+
+@pytest.mark.gpu
+def test_simple_engine_launches_k3_per_decode_step(cuda_device):
+    """The ``simple`` engine's one-request path decodes through K3: one
+    launch per layer per decode step (a prompt of 11 prefills on the
+    dense route), with the continuous engine's greedy tokens in fp32."""
+    from fengshen_tpu_torch.api.main import SimpleEngine
+    from fengshen_tpu_torch.pipelines.text_generation import (IdTokenizer,
+                                                              Pipeline)
+    model = _model("float32", cuda_device)
+    pipe = Pipeline(module=model, tokenizer=IdTokenizer(),
+                    max_new_tokens=MAX_NEW, device="cuda")
+    simple = SimpleEngine(pipe)
+    simple.warmup()
+    prompt = _prompts()[1]
+    reset_launch_counts()
+    text = simple.generate(" ".join(map(str, prompt)))
+    entry = get_entry("decode_attention")
+    assert entry.variants == {"s1": 2 * (MAX_NEW - 1)}
+    assert entry.dense_calls == 2
+    eng = ContinuousBatchingEngine(model, EngineConfig(
+        num_slots=2, buckets=(16,), max_new_tokens=MAX_NEW))
+    (tokens,) = eng.generate_all([prompt])
+    assert [int(t) for t in text.split()] == tokens
