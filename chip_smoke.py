@@ -94,7 +94,26 @@ Phases (each raises on failure, so any failure exits non-zero):
    attention on one device through K1, remat ``dots_no_batch``, bf16
    AdamW) for 3 steps; counts set to 0 just before and read just after;
    step 1 held to the same step with K2's plain version, which planted
-   K2 faults must fail.
+   K2 faults must fail;
+10. LoRA fine-tune: ``finetune_ziya_llama.main`` with ``--packed
+   --lora_rank 8`` on Ziya-13B at full width and all 40 layers (fp32
+   base made on the card from a seed, bf16 compute, per-layer
+   checkpointing), 4 rows of 1024 packed from 14 records, 6 steps,
+   validation every 3 steps over 2 batches, ``/metrics`` scraped mid-fit
+   and steps 4-5 profiled; K1's launches pinned per step (80 / 40 / 40,
+   +40 forward per validation batch), every one given segment ids;
+   sampled base tensors bitwise unchanged, every ``lora_b`` moved; step 1
+   held to the same step with K1's plain version, which K1 given
+   all-ones segment ids (a planted fault) must fail;
+11. resume, preemption, rewind and merge on Ziya width cut to 2 layers
+   (weights loaded from a safetensors checkpoint the phase writes): a
+   run preempted by a real SIGTERM at step 3 and resumed equals the
+   uninterrupted run bitwise; a truncated newest checkpoint falls back
+   to the one before; NaN steps 5-6 rewind to the step-4 checkpoint and
+   dump a flight-recorder bundle; the merge CLI's directory, served
+   through ``Pipeline(model=dir)`` and K3 (the CLI run with no
+   ``--device``, so on the card), gives the in-memory merge's tokens. Free disk is checked first; GiB and seconds written and read
+   are printed.
 
 Phase 3 also holds K2 (fused LM-head cross-entropy: forward, dx, dK) to
 its plain version at the long-context path's shape (T = 32767 tokens,
@@ -1916,9 +1935,15 @@ def phase_serving_surface(model, pipe, prompts, runs, card):
             waiter.join(timeout=120)
             thread.join(timeout=30)
             drain_s = time.perf_counter() - t_drain
+            drained = [[int(t) for t in r[1]["result"].split()]
+                       if r[0] == 200 else [] for r in results]
             check("drain_in_flight_finish", busy > 0 and all(
-                r[0] == 200 and [int(t) for t in r[1]["result"].split()]
-                == w for r, w in zip(results, want)))
+                r[0] == 200 and d == w
+                for r, d, w in zip(results, drained, want)),
+                  busy=busy, codes=[r[0] for r in results],
+                  errors=[r[1] for r in results if r[0] != 200],
+                  parted=[near_tie(model, p, w, d) for p, w, d in
+                          zip(prompts, want, drained)])
             check("drain_refuses_new_work", refused == (503, {
                 "error": "replica draining", "reason": "draining"}))
             check("drain_healthz", health[0] == 503 and
@@ -2254,6 +2279,15 @@ def grad_rel(got: dict, want: dict) -> dict:
     return rel
 
 
+def no_checkpoints(path: Path) -> list:
+    """Checkpoint flags for a run that saves and restores nothing: its
+    own empty directory, and an interval past the run's end (the
+    reference's ``main`` always adds the callback, which saves at the
+    end of a fit without an interval)."""
+    return ["--save_ckpt_path", str(path), "--load_ckpt_path", str(path),
+            "--every_n_train_steps", str(10 ** 9)]
+
+
 def planted_backward_faults():
     """Faults planted in K1's backward for the training step's check:
     name -> patches of the seam's kernel wrappers."""
@@ -2293,9 +2327,9 @@ def phase_training(workdir: Path):
     import torch
     from unittest import mock
     from fengshen_tpu_torch.examples.ziya_llama import finetune_ziya_llama
-    from fengshen_tpu_torch.models.llama import modeling_llama
     from fengshen_tpu_torch.ops.kernels import (get_entry,
                                                 reset_launch_counts)
+    from fengshen_tpu_torch.pipelines.text_generation import IdTokenizer
     from fengshen_tpu_torch.trainer import Trainer
 
     raw = json.loads(ZIYA_CONFIG.read_text())
@@ -2312,13 +2346,14 @@ def phase_training(workdir: Path):
         "--max_epochs", 10 * TRAIN_STEPS, "--learning_rate", 3e-4,
         "--scheduler_type", "constant", "--warmup_ratio", 0,
         "--log_every_n_steps", 1, "--seed", 0, "--default_root_dir",
-        workdir / "runs", "--device", "cuda")]
+        workdir / "runs", "--device", "cuda",
+        *no_checkpoints(workdir / "ckpt"))]
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    trainer = finetune_ziya_llama.main(argv)
+    trainer = finetune_ziya_llama.main(argv, tokenizer=IdTokenizer())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: get_entry(name).launches for name in K1_NAMES}
@@ -2359,7 +2394,6 @@ def phase_training(workdir: Path):
     from fengshen_tpu_torch.models.llama import LlamaConfig
     from fengshen_tpu_torch.ops import kernels
     from fengshen_tpu_torch.ops.kernels import flash_attention as seam
-    from fengshen_tpu_torch.pipelines.text_generation import IdTokenizer
     args = finetune_ziya_llama.parse_args(argv)
     ref_trainer = Trainer(args)
     collator = finetune_ziya_llama.LlamaSFTCollator(
@@ -3148,6 +3182,501 @@ def phase_long_context(workdir: Path):
     return launches
 
 
+# -- phase 10 -----------------------------------------------------------
+
+#: full-depth LoRA fine-tune (phase 10): Ziya-13B at full width and all
+#: 40 layers, packed rows, rank-8 adapters on q/k/v/o_proj
+LORA_STEPS, LORA_ROWS, LORA_SEQ, LORA_RECORDS = 6, 4, 1024, 14
+LORA_RANK, LORA_VAL_EVERY, LORA_VAL_BATCHES = 8, 3, 2
+LORA_PROFILE = (4, 5)
+#: base tensors held bitwise to their values before the fit
+LORA_SAMPLED = ("model.embed_tokens.weight",
+                "model.layers.0.self_attn.q_proj.weight",
+                "model.layers.20.self_attn.o_proj.weight",
+                "model.layers.39.mlp.down_proj.weight",
+                "model.norm.weight", "lm_head.weight")
+#: resume, preemption, rewind and merge (phase 11): layers kept at Ziya
+#: width (a 40-layer fp32 checkpoint would write 52 GB per save), steps,
+#: the step the preemption hits, free disk the phase needs
+RESUME_LAYERS, RESUME_STEPS, RESUME_SIGTERM_AT = 2, 6, 3
+RESUME_MIN_FREE_GIB = 24
+
+
+def packed_records(n, vocab, seed):
+    """Synthetic SFT records (ids as text, for the IdTokenizer) of
+    roughly 90-470 tokens each, so rows of 1024 pack 2-8 of them."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+
+    def ids(k):
+        return " ".join(map(str, rng.randint(3, vocab, k)))
+    return [{"query": ids(rng.randint(20, 80)),
+             "answer": ids(rng.randint(60, 380))} for _ in range(n)]
+
+
+def write_jsonl(path: Path, records) -> Path:
+    with open(path, "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+    return path
+
+
+@contextlib.contextmanager
+def fit_hook(install):
+    """Run ``install(trainer, module)`` at the start of every
+    ``Trainer.fit`` (to add an observing callback or a fault plan to the
+    Trainer that ``finetune_ziya_llama.main`` builds)."""
+    from unittest import mock
+    from fengshen_tpu_torch.trainer import trainer as trainer_mod
+    real = trainer_mod.Trainer.fit
+
+    def fit(self, module, datamodule):
+        install(self, module)
+        return real(self, module, datamodule)
+
+    with mock.patch.object(trainer_mod.Trainer, "fit", fit):
+        yield
+
+
+def lora_argv(workdir: Path, model_dir: Path, train: Path, steps: int,
+              extra=()) -> list:
+    return [str(x) for x in (
+        "--model_path", model_dir, "--train_file", train, "--packed",
+        "--packed_rows", LORA_ROWS, "--max_seq_length", LORA_SEQ,
+        "--train_batchsize", LORA_RECORDS, "--lora_rank", LORA_RANK,
+        "--max_steps", steps, "--learning_rate", 1e-3,
+        "--scheduler_type", "constant", "--warmup_ratio", 0,
+        "--log_every_n_steps", 1, "--seed", 0, "--default_root_dir",
+        workdir / "runs", "--device", "cuda", *extra)]
+
+
+def phase_lora_finetune(workdir: Path):
+    """``finetune_ziya_llama.main`` with ``--packed --lora_rank 8`` on
+    Ziya-13B at full width and all 40 layers: fp32 base made on the card
+    from a seed, bf16 compute, per-layer checkpointing, K1 with segment
+    ids; validation every 3 steps over 2 batches, ``/metrics`` scraped
+    during the fit, steps 4-5 profiled. Then step 1 again with K1's
+    plain version, and with K1 given all-ones segment ids: a planted
+    fault that the step-1 bar must reject. Returns K1's launches."""
+    import numpy as np
+    import torch
+    from unittest import mock
+    from fengshen_tpu_torch.data import UniversalDataModule
+    from fengshen_tpu_torch.examples.ziya_llama import finetune_ziya_llama
+    from fengshen_tpu_torch.ops import kernels
+    from fengshen_tpu_torch.ops.kernels import (get_entry,
+                                                reset_launch_counts)
+    from fengshen_tpu_torch.ops.lora import LoraLinear
+    from fengshen_tpu_torch.pipelines.text_generation import IdTokenizer
+    from fengshen_tpu_torch.trainer import Trainer
+    from fengshen_tpu_torch.trainer.modules import maybe_wrap_lora
+
+    raw = json.loads(ZIYA_CONFIG.read_text())
+    (workdir / "model13b").mkdir(parents=True, exist_ok=True)
+    (workdir / "model13b" / "config.json").write_text(json.dumps(raw))
+    train = write_jsonl(workdir / "lora_train.jsonl", packed_records(
+        LORA_STEPS * LORA_RECORDS, raw["vocab_size"], seed=11))
+    val = write_jsonl(workdir / "lora_val.jsonl", packed_records(
+        LORA_VAL_BATCHES * LORA_RECORDS, raw["vocab_size"], seed=12))
+    argv = lora_argv(workdir, workdir / "model13b", train, LORA_STEPS, (
+        "--val_file", val, "--val_batchsize", LORA_RECORDS,
+        "--val_check_interval", LORA_VAL_EVERY, "--limit_val_batches",
+        LORA_VAL_BATCHES, "--metrics_port", 0, "--profile_steps",
+        ",".join(map(str, LORA_PROFILE)),
+        *no_checkpoints(workdir / "ckpt13b")))
+
+    base0, per_step, scraped = {}, [], {}
+
+    class Probe:
+        """K1's launch counts after each step; ``/metrics`` at step 2."""
+
+        def on_train_step_end(self, trainer, state):
+            per_step.append([get_entry(n).launches for n in K1_NAMES])
+            if trainer.global_step == 2:
+                port = trainer._metrics_server.port
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics",
+                        timeout=30) as r:
+                    scraped["text"] = r.read().decode()
+
+    def install(trainer, module):
+        real_init = module.init_params
+
+        def init(generator):
+            model = real_init(generator)
+            sd = model.state_dict()
+            base0.update({n: sd[n].detach().cpu().clone()
+                          for n in LORA_SAMPLED})
+            return model
+
+        module.init_params = init
+        trainer.callbacks.append(Probe())
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with fit_hook(install):
+        trainer = finetune_ziya_llama.main(argv, tokenizer=IdTokenizer())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: get_entry(n).launches for n in K1_NAMES}
+    variants = {n: dict(get_entry(n).variants) for n in K1_NAMES}
+    segmented = {n: get_entry(n).segmented for n in K1_NAMES}
+    model = trainer.state.model
+    sd = model.state_dict()
+    base_equal = {n: bool(torch.equal(sd[n].cpu(), base0[n]))
+                  for n in LORA_SAMPLED}
+    adapters = [m for m in model.modules() if isinstance(m, LoraLinear)]
+    lora_b_moved = sum(int(m.lora_b.detach().abs().max() > 0)
+                       for m in adapters)
+    n_trainable = sum(p.numel() for p in model.parameters()
+                      if p.requires_grad)
+    hist = trainer.history
+    steps = [e for e in hist if "loss" in e]
+    vals = [e for e in hist if "val_loss" in e]
+    events = {e.get("event") for e in hist}
+    trace = workdir / "runs" / "profile" / "trace-{}-{}.json".format(
+        *LORA_PROFILE)
+    from torch.autograd import DeviceType
+    dev_us = {}
+    for ev in trainer.profiler.events():
+        if ev.device_type == DeviceType.CUDA:
+            dev_us[ev.name] = dev_us.get(ev.name, 0) + \
+                ev.time_range.elapsed_us()
+    busy_ms = sum(dev_us.values()) / 1e3
+    k1_ms = sum(us for name, us in dev_us.items()
+                if "flash_" in name) / 1e3
+    profiled_step_s = next(e["step_time_s"] for e in steps
+                           if e["step"] == LORA_PROFILE[1])
+    del trainer, model, sd, adapters
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # step 1 again from the same seed and batch with K1's plain version
+    args = finetune_ziya_llama.parse_args(argv)
+    ref_trainer = Trainer(args)
+    module = finetune_ziya_llama.Llama(args, device="cuda")
+    module.config.packed_sequences = True
+    module = maybe_wrap_lora(module, args)
+    module.setup("fit")
+    module.init_params(torch.Generator(device="cuda").manual_seed(0))
+    collator = finetune_ziya_llama.LlamaSFTPackedCollator(
+        IdTokenizer(), max_seq_length=LORA_SEQ, fixed_rows=LORA_ROWS)
+    host = next(iter(UniversalDataModule(
+        collate_fn=collator, args=args).train_dataloader()))
+    segs = [len(set(row[row > 0].tolist()))
+            for row in np.asarray(host["attention_mask"])]
+    real_tokens = int((np.asarray(host["attention_mask"]) > 0).sum())
+    with mock.patch.object(kernels, "kernel_choice",
+                           lambda name, tensor: "plain"):
+        ref = ref_trainer._make_grad_step(module)(
+            ref_trainer._to_device(host))
+    ref_loss, ref_norm = float(ref["loss"]), float(ref["grad_norm"])
+
+    # a planted fault: K1 given all-ones segment ids (every packed
+    # example attends to the ones before it in its row) must fail the
+    # bar below, so the bar can see a K1 that ignores the segments
+    from fengshen_tpu_torch.models.llama import modeling_llama
+    real_fa = modeling_llama.flash_attention
+
+    def unsegmented(q, k, v, causal=False, segment_ids=None):
+        return real_fa(q, k, v, causal=causal,
+                       segment_ids=None if segment_ids is None
+                       else torch.ones_like(segment_ids))
+
+    with mock.patch.object(modeling_llama, "flash_attention",
+                           unsegmented):
+        bad = ref_trainer._make_grad_step(module)(
+            ref_trainer._to_device(host))
+    fault_loss_rel = abs(float(bad["loss"]) - ref_loss) / abs(ref_loss)
+    fault_norm_rel = abs(float(bad["grad_norm"]) - ref_norm) / \
+        abs(ref_norm)
+    del ref_trainer, module, ref, bad
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    losses = [e["loss"] for e in steps]
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    norm_rel = abs(steps[0]["grad_norm"] - ref_norm) / abs(ref_norm)
+    layers = raw["num_hidden_layers"]
+    val_steps = {e["step"] for e in vals}
+    want_step = [[2 * layers + layers * LORA_VAL_BATCHES *
+                  (s in val_steps), layers, layers]
+                 for s in range(1, LORA_STEPS + 1)]
+    got_step = [[b - a for a, b in zip([0, 0, 0] if i == 0 else
+                                       per_step[i - 1], cur)]
+                for i, cur in enumerate(per_step)]
+    steady = [e["step_time_s"] for e in steps
+              if e["step"] not in (1, LORA_VAL_EVERY + 1) and
+              e["step"] < LORA_PROFILE[0] + 1]
+    tokens = LORA_ROWS * LORA_SEQ
+    mfu = steps[-1]["flops_per_token"] * tokens / \
+        (sum(steady) / len(steady)) / BF16_FLOPS
+    metric_step = re.search(r"^fstpu_train_step (\d+)",
+                            scraped.get("text", ""), re.M)
+    say("lora_finetune", layers=layers, hidden=raw["hidden_size"],
+        heads=raw["num_attention_heads"], vocab=raw["vocab_size"],
+        rank=LORA_RANK, trainable_params=n_trainable,
+        rows=LORA_ROWS, seq=LORA_SEQ, records_per_batch=LORA_RECORDS,
+        segments_per_row_step1=segs, real_tokens_step1=real_tokens,
+        steps=LORA_STEPS, losses=losses,
+        grad_norms=[e["grad_norm"] for e in steps],
+        val_losses=[e["val_loss"] for e in vals],
+        val_steps=sorted(val_steps),
+        step_s=[e["step_time_s"] for e in steps], steady_steps_s=steady,
+        tokens_per_s=tokens * len(steady) / sum(steady),
+        mfu_bf16=mfu, mfu_note="flops_per_token counts the base's weight "
+        "gradients, which LoRA does not compute: reads high",
+        profiled_step_s=profiled_step_s,
+        profiled_busy_ms=busy_ms if dev_us else "not measured",
+        k1_ms_in_profile=k1_ms if dev_us else "not measured",
+        k1_share_of_busy=k1_ms / busy_ms if dev_us else "not measured",
+        wall_s=wall, max_memory_allocated_gib=peak / 2**30,
+        launches=launches, variants=variants, segmented=segmented,
+        launches_per_step=got_step, base_bitwise_equal=base_equal,
+        lora_b_moved=f"{lora_b_moved}/{4 * layers}",
+        metrics_scraped_step=metric_step and int(metric_step.group(1)),
+        trace=str(trace), trace_exists=trace.exists(),
+        plain_step1_loss=ref_loss, plain_step1_grad_norm=ref_norm,
+        loss_rel_diff=loss_rel, grad_norm_rel_diff=norm_rel,
+        loss_rtol=TRAIN_LOSS_RTOL, grad_norm_rtol=TRAIN_GRAD_NORM_RTOL,
+        unsegmented_fault_loss_rel_diff=fault_loss_rel,
+        unsegmented_fault_grad_norm_rel_diff=fault_norm_rel)
+    failures = []
+    if fault_loss_rel <= TRAIN_LOSS_RTOL and \
+            fault_norm_rel <= TRAIN_GRAD_NORM_RTOL:
+        failures.append(f"the planted unsegmented K1 passed the step-1 "
+                        f"bar (loss {fault_loss_rel}, grad norm "
+                        f"{fault_norm_rel})")
+    if len(steps) != LORA_STEPS or not all(map(math.isfinite, losses)):
+        failures.append(f"losses {losses}")
+    if len(vals) != LORA_STEPS // LORA_VAL_EVERY or not all(
+            math.isfinite(e["val_loss"]) for e in vals):
+        failures.append(f"validation entries {vals}")
+    if not all(base_equal.values()):
+        failures.append(f"base tensors moved: {base_equal}")
+    if lora_b_moved != 4 * layers:
+        failures.append(f"lora_b moved in {lora_b_moved} of {4 * layers}")
+    if got_step != want_step:
+        failures.append(f"K1 launches per step {got_step}, want "
+                        f"{want_step}")
+    if variants != {n: {"tensor_core": c} for n, c in launches.items()} \
+            or segmented != launches:
+        failures.append(f"K1 variants {variants}, with segment ids "
+                        f"{segmented}, of {launches}")
+    if not metric_step or int(metric_step.group(1)) < 1:
+        failures.append("/metrics showed no fstpu_train_step")
+    if not trace.exists() or not {"profile_start",
+                                  "profile_stop"} <= events:
+        failures.append(f"no profile trace at {trace}")
+    if loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_GRAD_NORM_RTOL:
+        failures.append(f"step 1 with K1 (loss {losses[0]}, grad norm "
+                        f"{steps[0]['grad_norm']}) against the plain "
+                        f"attention (loss {ref_loss}, grad norm "
+                        f"{ref_norm})")
+    if failures:
+        raise AssertionError("lora fine-tune: " + "; ".join(failures))
+    return launches
+
+
+# -- phase 11 -----------------------------------------------------------
+
+def lora_tensors(model) -> dict:
+    from fengshen_tpu_torch.ops.lora import lora_state
+    return {k: v.detach().cpu().clone()
+            for k, v in lora_state(model).items()}
+
+
+def phase_lora_resume(workdir: Path, prompts, card):
+    """Resume, preemption, rewind and merge-to-serve on Ziya width cut
+    to 2 layers, fp32 base loaded from a safetensors checkpoint written
+    here, LoRA rank 8, a checkpoint every 2 steps (``save_top_k`` 2).
+    Run A trains 6 steps; run B is preempted by a real SIGTERM at step 3
+    and run C resumes it: C's losses for steps 4-6 and its final
+    adapters must equal A's. The merge CLI's output is served through
+    ``Pipeline(model=dir)`` and K3 with tokens equal to the in-memory
+    merge; the newest step truncated falls back to the one before; NaN
+    steps 5-6 rewind to the step-4 checkpoint and dump a bundle."""
+    import shutil
+    import signal
+    import torch
+    from fengshen_tpu_torch.examples.ziya_llama import finetune_ziya_llama
+    from fengshen_tpu_torch.models.llama import (LlamaConfig,
+                                                 LlamaForCausalLM)
+    from fengshen_tpu_torch.ops import lora
+    from fengshen_tpu_torch.ops.kernels import get_entry
+    from fengshen_tpu_torch.pipelines.text_generation import (IdTokenizer,
+                                                              Pipeline)
+    from fengshen_tpu_torch.resilience import (FaultPlan,
+                                               truncate_checkpoint_step)
+    from fengshen_tpu_torch.trainer import Trainer
+    from fengshen_tpu_torch.trainer import trainer as trainer_mod
+    from fengshen_tpu_torch.trainer.modules import maybe_wrap_lora
+
+    free = shutil.disk_usage(workdir).free / 2**30
+    if free < RESUME_MIN_FREE_GIB:
+        raise AssertionError(f"lora resume: {free:.1f} GiB free under "
+                             f"{workdir}, the phase needs "
+                             f"{RESUME_MIN_FREE_GIB}")
+    t_phase = time.perf_counter()
+    raw = json.loads(ZIYA_CONFIG.read_text())
+    raw["num_hidden_layers"] = RESUME_LAYERS
+    model_dir = workdir / "model2"
+    model_dir.mkdir(parents=True, exist_ok=True)
+    (model_dir / "config.json").write_text(json.dumps(raw))
+    cfg = LlamaConfig.from_pretrained(str(model_dir))
+    seed_model = LlamaForCausalLM(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(3))
+    written = write_safetensors(model_dir / "model.safetensors", {
+        k: v.to(torch.bfloat16)
+        for k, v in seed_model.state_dict().items()})
+    del seed_model
+    train = write_jsonl(workdir / "resume_train.jsonl", packed_records(
+        RESUME_STEPS * LORA_RECORDS, raw["vocab_size"], seed=13))
+    io = {"gib_written": written / 2**30, "gib_read": 0.0, "write_s": 0.0,
+          "read_s": 0.0}
+
+    def run(name, steps=RESUME_STEPS, every=2, extra=(), install=None):
+        ckpt = workdir / f"ckpt_{name}"
+        argv = lora_argv(workdir / name, model_dir, train, steps, (
+            "--save_ckpt_path", ckpt, "--load_ckpt_path", ckpt,
+            "--every_n_train_steps", every, "--save_top_k", 2, *extra))
+        with fit_hook(install or (lambda t, m: None)):
+            trainer = finetune_ziya_llama.main(argv,
+                                               tokenizer=IdTokenizer())
+        cb = next(c for c in trainer.callbacks if hasattr(c, "stats"))
+        io["gib_written"] += cb.stats["bytes_written"] / 2**30
+        io["gib_read"] += cb.stats["bytes_read"] / 2**30
+        io["write_s"] += cb.stats["save_s"]
+        io["read_s"] += cb.stats["restore_s"]
+        return trainer, ckpt
+
+    failures = []
+    trainer_a, ckpt_a = run("a")
+    losses_a = {e["step"]: e["loss"] for e in trainer_a.history
+                if "loss" in e}
+    adapters_a = lora_tensors(trainer_a.state.model)
+
+    # merge-to-serve: the CLI on A's newest step, against A's model
+    # merged in memory, both served through K3
+    merged_dir = workdir / "merged"
+    lora.main(["--input_path", str(ckpt_a), "--output_path",
+               str(merged_dir), "--config_path", str(model_dir)])
+    model_a = lora.merge_lora(trainer_a.state.model)
+    entry = get_entry("decode_attention")
+    want, _ = serve_run(Pipeline(module=model_a, tokenizer=IdTokenizer(),
+                                 max_new_tokens=NEW_TOKENS, device="cuda"),
+                        "paged", prompts, entry)
+    served, k3 = serve_run(Pipeline(model=str(merged_dir),
+                                    tokenizer=IdTokenizer(),
+                                    max_new_tokens=NEW_TOKENS,
+                                    device="cuda"),
+                           "paged", prompts, entry)
+    if served != want or not k3:
+        failures.append(f"merged checkpoint served {k3} K3 launches, "
+                        f"tokens equal {served == want}")
+    del trainer_a, model_a
+    shutil.rmtree(merged_dir)
+
+    # the newest step truncated: the restore falls back to the one before
+    newest = max(int(p.name) for p in ckpt_a.iterdir() if p.name.isdigit())
+    truncate_checkpoint_step(str(ckpt_a), newest)
+    args = finetune_ziya_llama.parse_args(lora_argv(
+        workdir / "trunc", model_dir, train, RESUME_STEPS,
+        ("--load_ckpt_path", ckpt_a, "--save_ckpt_path",
+         workdir / "ckpt_trunc")))
+    probe = Trainer(args)
+    from fengshen_tpu_torch.utils.universal_checkpoint import (
+        UniversalCheckpoint)
+    probe.callbacks.append(UniversalCheckpoint(args))
+    module = maybe_wrap_lora(finetune_ziya_llama.Llama(args,
+                                                       device="cuda"), args)
+    probe.restore_for_predict(module)
+    rejected = [e["ckpt_step"] for e in probe.history
+                if e.get("event") == "checkpoint_restore_rejected"]
+    fell_back_to = probe.global_step
+    if rejected != [newest] or fell_back_to != newest - 2:
+        failures.append(f"truncated step {newest}: rejected {rejected}, "
+                        f"restored step {fell_back_to}")
+    del probe, module
+    shutil.rmtree(ckpt_a)
+
+    # preemption by a real SIGTERM at step 3, then the resume
+    plan_b = FaultPlan(sigterm_at_step=RESUME_SIGTERM_AT)
+
+    def preempt(trainer, module):
+        handler = trainer_mod._SIGTERM_STATE["handler"]
+        if handler is None or signal.getsignal(signal.SIGTERM) is not \
+                handler:
+            raise AssertionError("the Trainer installed no SIGTERM "
+                                 "handler: the planted SIGTERM would "
+                                 "kill the smoke")
+        plan_b.install(trainer)
+
+    trainer_b, ckpt_b = run("b", install=preempt)
+    saved_b = [e for e in trainer_b.history
+               if e.get("event") == "preempted_saved"]
+    del trainer_b
+    trainer_c, _ = run("b")
+    losses_c = {e["step"]: e["loss"] for e in trainer_c.history
+                if "loss" in e}
+    adapters_c = lora_tensors(trainer_c.state.model)
+    del trainer_c
+    shutil.rmtree(ckpt_b)
+    tail = range(RESUME_SIGTERM_AT + 1, RESUME_STEPS + 1)
+    loss_equal = [losses_c.get(s) == losses_a[s] for s in tail]
+    parted = [k for k in adapters_a
+              if not torch.equal(adapters_a[k], adapters_c[k])]
+    worst = max((((adapters_a[k] - adapters_c[k]).norm() /
+                  adapters_a[k].norm().clamp_min(1e-30)).item()
+                 for k in parted), default=0.0)
+    if [e["step"] for e in saved_b] != [RESUME_SIGTERM_AT]:
+        failures.append(f"preempted_saved events {saved_b}")
+    if not all(loss_equal) or parted:
+        failures.append(f"resume parted from the uninterrupted run: "
+                        f"losses {[losses_c.get(s) for s in tail]} vs "
+                        f"{[losses_a[s] for s in tail]}, first adapter "
+                        f"{parted[:1]}, worst rel L2 {worst}")
+
+    # two guarded NaN steps (5 and 6) rewind to the step-4 checkpoint
+    plan_r = FaultPlan(nan_loss_at_steps={4, 5})
+    trainer_r, ckpt_r = run("r", every=4, extra=(
+        "--max_consecutive_bad_steps", 2),
+        install=lambda t, m: plan_r.install(t))
+    rewinds = [e for e in trainer_r.history if e.get("event") == "rewind"]
+    bundles = sorted((workdir / "r" / "runs" / "flightrec").glob(
+        "dump-*-rewind"))
+    end_step, end_bad = trainer_r.global_step, trainer_r.state.bad_step_count
+    del trainer_r
+    shutil.rmtree(ckpt_r)
+    if [(e["from_step"], e["to_step"]) for e in rewinds] != [(6, 4)] or \
+            not bundles or end_step != RESUME_STEPS:
+        failures.append(f"rewind events {rewinds}, bundles {bundles}, "
+                        f"ended at step {end_step}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("lora_resume", card=card, layers=RESUME_LAYERS, steps=RESUME_STEPS,
+        sigterm_at=RESUME_SIGTERM_AT, losses_a=losses_a,
+        losses_c=losses_c, resume_losses_bitwise=loss_equal,
+        adapters_parted=len(parted), adapters_worst_rel_l2=worst,
+        preempted_saved=[e["step"] for e in saved_b],
+        merged_served_equal=served == want, merged_k3_launches=k3,
+        truncated_step=newest, rejected=rejected,
+        restored_step=fell_back_to,
+        rewinds=[(e["from_step"], e["to_step"]) for e in rewinds],
+        rewind_bundles=[b.name for b in bundles],
+        rewind_bad_step_count=end_bad, **io,
+        write_gib_per_s=io["gib_written"] / max(io["write_s"], 1e-9),
+        read_gib_per_s=io["gib_read"] / max(io["read_s"], 1e-9),
+        phase_s=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("lora resume: " + "; ".join(failures))
+    return k3
+
+
 def main() -> int:
     try:
         import torch
@@ -3212,6 +3741,10 @@ def main() -> int:
         mark("8_training")
         long_launches = phase_long_context(Path(tmp))
         mark("9_long_context")
+        lora_launches = phase_lora_finetune(Path(tmp))
+        mark("10_lora_finetune")
+        launches += phase_lora_resume(Path(tmp), prompts, card)
+        mark("11_lora_resume")
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     main_row = rows[("paged", 1)]
@@ -3255,7 +3788,11 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "variant": "tensor_core"})
+            "variant": "tensor_core",
+            "launches_by_path": {"sft_4_layers": k1_launches[name],
+                                 "lora_40_layers_packed":
+                                     lora_launches[name],
+                                 "long_context": long_launches[name]}})
     for name in K2_NAMES:
         e, r = get_entry(name), k2_rows[name]
         kernels.append({

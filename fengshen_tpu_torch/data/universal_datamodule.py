@@ -5,10 +5,13 @@ datasets and its local-file branch.
 Split files (``--train_file`` and friends) are read with the stdlib
 ``json`` module, as a JSON array or as one JSON object per line; the
 reference reads them through HF ``datasets``, which the port does not
-use. Named registry datasets (``--datasets_name``) and csv files are not
-yet ported, nor are validation and prediction loaders: a split other
-than the train split is refused. Batches are numpy dicts; the Trainer
-moves them to the device. There is one data-parallel rank.
+use. The train loader is the resumable one (it starts past the
+trainer's ``consumed_samples``); the validation loader (``--val_file``,
+the ``validation`` split) walks its split in order, batch by batch, as
+the reference's ``_SimpleBatchSampler`` does. Named registry datasets
+(``--datasets_name``), csv files and the test split are not yet ported
+and are refused. Batches are numpy dicts; the Trainer moves them to the
+device. There is one data-parallel rank.
 """
 
 from __future__ import annotations
@@ -68,13 +71,45 @@ class DataLoader:
 
     def __iter__(self):
         for indices in self.sampler:
-            yield self.collate_fn([self.dataset[int(i)] for i in indices])
+            try:
+                batch = self.collate_fn([self.dataset[int(i)]
+                                         for i in indices])
+            except Exception:  # noqa: BLE001 — always re-raised
+                # the stateful sampler already counted these indices:
+                # roll it back so a retry sees the same batch
+                unconsume = getattr(self.sampler, "unconsume", None)
+                if callable(unconsume):
+                    unconsume()
+                raise
+            yield batch
+
+    def skip_next(self) -> None:
+        """``ResilientLoader``'s skip protocol: advance the sampler past
+        the next (poison) batch without fetching it."""
+        next(iter(self.sampler), None)
 
     def peek(self):
         """A shape-representative batch without advancing the sampler."""
-        n = min(self.sampler.micro_batch_size, self.num_samples)
+        micro = getattr(self.sampler, "micro_batch_size", None) or \
+            getattr(self.sampler, "batch", 1)
+        n = min(micro, self.num_samples)
         return self.collate_fn([self.dataset[i % self.num_samples]
                                 for i in range(n)])
+
+
+class _SimpleBatchSampler:
+    """The validation sampler of the reference (``_SimpleBatchSampler``,
+    ``universal_datamodule.py:94``, unshuffled) on one rank: batches of
+    ``batch`` indices in order, the tail short of a full batch
+    dropped."""
+
+    def __init__(self, total: int, batch: int):
+        self.total, self.batch = total, batch
+
+    def __iter__(self):
+        for start in range(0, self.total - self.total % self.batch,
+                           self.batch):
+            yield list(range(start, start + self.batch))
 
 
 class UniversalDataModule:
@@ -130,13 +165,14 @@ class UniversalDataModule:
                         getattr(args, attr))
         else:
             self.datasets = {}
-        train_field = getattr(args, "train_datasets_field", "train")
+        known = (getattr(args, "train_datasets_field", "train"),
+                 getattr(args, "val_datasets_field", "validation"))
         others = [k for k, v in self.datasets.items()
-                  if k != train_field and v is not None]
+                  if k not in known and v is not None]
         if others:
             raise NotImplementedError(
-                f"splits {others}: validation and prediction loaders are "
-                "not yet ported (the port trains on the train split)")
+                f"splits {others}: test and prediction loaders are not "
+                "yet ported (the train and validation splits are)")
 
     def train_dataloader(self):
         """The resumable train loader: a seeded random (or, with
@@ -159,4 +195,17 @@ class UniversalDataModule:
                 micro_batch_size=batch_size, data_parallel_rank=0,
                 data_parallel_size=1)
         return DataLoader(ds, sampler, self.collate_fn,
+                          global_batch_size=batch_size)
+
+    def val_dataloader(self):
+        """The validation loader over the ``val_datasets_field`` split
+        (``--val_batchsize`` rows, in order, the tail short of a batch
+        dropped), or None without that split."""
+        field = getattr(self.args, "val_datasets_field", "validation")
+        ds = self.datasets.get(field)
+        if ds is None:
+            return None
+        batch_size = getattr(self.args, "val_batchsize", 16)
+        return DataLoader(ds, _SimpleBatchSampler(len(ds), batch_size),
+                          self.collate_fn,
                           global_batch_size=batch_size)

@@ -29,9 +29,10 @@ from __future__ import annotations
 
 import glob
 import json
+import math
 import os
 import struct
-from typing import Any, Iterator, Mapping, Optional
+from typing import Any, Iterable, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -263,6 +264,152 @@ def _iter_file(fmt: str, path: str, names) -> Iterator[tuple]:
             yield name, state.pop(name)
 
 
+#: torch dtype -> safetensors dtype name
+_SAFETENSORS_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+
+
+def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> int:
+    """Write ``tensors`` as one safetensors file, tensor by tensor (see
+    :func:`write_safetensors_stream`). Returns the bytes written."""
+    return write_safetensors_stream(
+        path, [(name, t.dtype, t.shape) for name, t in tensors.items()],
+        tensors.values())
+
+
+def write_safetensors_stream(path: str, specs, tensors: Iterable) -> int:
+    """Write a safetensors file from ``specs`` (``(name, dtype, shape)``
+    in file order) and ``tensors``, an iterable that gives each tensor
+    in that order. The header is built from the specs; then each tensor
+    is taken from ``tensors``, copied to the host alone and appended,
+    so neither a model on the card nor a checkpoint streamed from disk
+    passes through host memory whole. A tensor whose dtype or shape
+    differs from its spec raises. Returns the bytes written."""
+    specs = [(name, dtype, list(shape)) for name, dtype, shape in specs]
+    header, offset = {}, 0
+    for name, dtype, shape in specs:
+        n = math.prod(shape) * dtype.itemsize
+        header[name] = {"dtype": _SAFETENSORS_NAMES[dtype],
+                        "shape": shape,
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for (name, dtype, shape), t in zip(specs, tensors, strict=True):
+            if t.dtype != dtype or list(t.shape) != shape:
+                raise ValueError(
+                    f"{path}: tensor {name!r} is {t.dtype} "
+                    f"{list(t.shape)}, its header says {dtype} {shape}")
+            if t.numel():
+                f.write(memoryview(t.detach().contiguous().cpu().reshape(
+                    -1).view(torch.uint8).numpy()))
+            del t
+    return 8 + len(head) + offset
+
+
+def check_safetensors_complete(path: str) -> dict:
+    """The header of a safetensors file whose size covers every
+    tensor's data; a shorter (truncated) file raises ``ValueError``
+    before anything is read."""
+    header, start = read_safetensors_header(path)
+    end = max((info["data_offsets"][1] for k, info in header.items()
+               if k != "__metadata__"), default=0)
+    if os.path.getsize(path) < start + end:
+        raise ValueError(f"{path}: truncated ({os.path.getsize(path)} "
+                         f"bytes, header needs {start + end})")
+    return header
+
+
+def _owners(path: str) -> tuple:
+    """``(format, files, {name: file})`` of a checkpoint directory, from
+    the files' headers (a name in two files belongs to the later one, as
+    the reference's dict update does)."""
+    fmt, files = checkpoint_files(path)
+    owner: dict = {}
+    for f in files:
+        for k in _file_keys(fmt, f):
+            owner[k] = f
+    return fmt, files, owner
+
+
+@torch.no_grad()
+def load_hf_weights(path: str, model: torch.nn.Module) -> None:
+    """Copy an HF LLaMA checkpoint directory into ``model``'s parameters
+    in place (on their device, in their dtype), tensor by tensor, after
+    checking every name against the model's config (``KeyError``) and
+    every shape (``ValueError``)."""
+    fmt, files, owner = _owners(path)
+    names = _checked_keys(owner.keys(), model.config)
+    params = dict(model.named_parameters())
+    for f in files:
+        mine = {k for k in names if owner[k] == f}
+        for name, tensor in _iter_file(fmt, f, mine):
+            param = params[name]
+            if tuple(tensor.shape) != tuple(param.shape):
+                raise ValueError(
+                    f"{name}: checkpoint shape {tuple(tensor.shape)}, "
+                    f"model shape {tuple(param.shape)}")
+            param.copy_(tensor)
+
+
+def lora_from_jax(lora: Mapping, config: LlamaConfig) -> dict:
+    """The ``lora`` half of the JAX package's LoRA two-tree
+    (``{'base', 'lora'}``, ``fengshen_tpu/ops/lora.py:44 init_lora``) ->
+    the port's adapter entries of the decoder layers' projections
+    (``...q_proj.lora_a [in, r]``, ``.lora_b [r, out]``,
+    ``.lora_scale``), unstacking the scan layout's ``[L]`` leading
+    axis. Load with
+    ``model.load_state_dict({**params_from_jax(base), **this},
+    strict=False)`` after adapting the same projections
+    (:func:`fengshen_tpu_torch.ops.lora.init_lora`)."""
+    out: dict = {}
+    model = lora.get("model", {})
+
+    def leaves(node, prefix):
+        for proj_group in ("self_attn", "mlp"):
+            for proj, ad in node.get(proj_group, {}).items():
+                yield f"{prefix}.{proj_group}.{proj}", ad
+
+    for i in range(config.num_hidden_layers):
+        if config.scan_layers:
+            layer = _index_stacked(model["layers"]["layer"], i) \
+                if "layers" in model else {}
+        else:
+            layer = model.get(f"layers_{i}", {})
+        for name, ad in leaves(layer, f"model.layers.{i}"):
+            out[f"{name}.lora_a"] = _tensor(ad["lora_a"])
+            out[f"{name}.lora_b"] = _tensor(ad["lora_b"])
+    scales = _scales(lora)
+    for name in [k[:-len(".lora_a")] for k in out if k.endswith(".lora_a")]:
+        out[f"{name}.lora_scale"] = torch.tensor(scales, dtype=torch.float32)
+    return out
+
+
+def _index_stacked(tree: Mapping, i: int) -> dict:
+    """Layer ``i`` of a scan-layout adapter tree (the scalar
+    ``lora_scale`` leaves are not stacked)."""
+    return {k: _index_stacked(v, i) if isinstance(v, Mapping) else
+            (v if np.ndim(v) == 0 else v[i]) for k, v in tree.items()}
+
+
+def _scales(tree) -> float:
+    """The one stored ``lora_scale`` of a JAX adapter tree (every target
+    carries the same ``alpha / rank``)."""
+    found = set()
+
+    def walk(node):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v)
+            elif k == "lora_scale":
+                found.update(float(x) for x in np.ravel(np.asarray(v)))
+
+    walk(tree)
+    if len(found) != 1:
+        raise ValueError(f"expected one lora_scale, found {sorted(found)}")
+    return found.pop()
+
+
 @torch.no_grad()
 def load_hf_pretrained(path: str, config: Optional[LlamaConfig] = None,
                        device=None):
@@ -278,24 +425,11 @@ def load_hf_pretrained(path: str, config: Optional[LlamaConfig] = None,
     takes the later file's tensor, as the reference's dict update does.
     """
     config = config or LlamaConfig.from_pretrained(path)
-    fmt, files = checkpoint_files(path)
-    owner: dict = {}
-    for f in files:
-        for k in _file_keys(fmt, f):
-            owner[k] = f
-    names = _checked_keys(owner.keys(), config)
+    # the names are checked before the model is allocated
+    _checked_keys(_owners(path)[2].keys(), config)
     from fengshen_tpu_torch.models.llama.modeling_llama import \
         LlamaForCausalLM
     model = LlamaForCausalLM(config, device=resolve_device(device),
                              init=False)
-    params = dict(model.named_parameters())
-    for f in files:
-        mine = {k for k in names if owner[k] == f}
-        for name, tensor in _iter_file(fmt, f, mine):
-            param = params[name]
-            if tuple(tensor.shape) != tuple(param.shape):
-                raise ValueError(
-                    f"{name}: checkpoint shape {tuple(tensor.shape)}, "
-                    f"model shape {tuple(param.shape)}")
-            param.copy_(tensor)
+    load_hf_weights(path, model)
     return config, model

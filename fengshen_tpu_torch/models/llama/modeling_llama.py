@@ -30,7 +30,11 @@ takes ``attention_impl`` "flash" (kernel K1 through
 "sequence" (flash attention over repeated KV heads, as the reference
 falls back to it); every other value ("dense", "sparse", any other
 string) takes the dense masked path, as the reference's ``else`` branch
-does. With ``gradient_checkpointing`` every layer is
+does. Under ``packed_sequences`` the ``attention_mask`` holds segment
+ids (1..n per row, 0 = pad) and ``position_ids`` restart per example
+(``LlamaSFTPackedCollator``): K1 takes the ids as they are, the dense
+path the block-diagonal causal mask (``modeling_llama.py:173-178``).
+With ``gradient_checkpointing`` every layer is
 recomputed in the backward (``torch.utils.checkpoint``) under the
 reference's remat policy "nothing", or "dots_no_batch", which keeps the
 projections' outputs (a selective checkpoint).
@@ -132,8 +136,14 @@ class CacheView(NamedTuple):
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
     """flax ``nn.Dense(dtype=...)``: inputs and kernel both cast to the
-    compute dtype."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype))
+    compute dtype. A LoRA-adapted projection (``ops/lora.LoraLinear``)
+    runs its own forward, which merges the weight there, inside the
+    layer's forward, so a checkpointed layer recomputes it in the
+    backward."""
+    x = x.to(dtype)
+    if hasattr(layer, "merged_weight"):
+        return layer(x)
+    return F.linear(x, layer.weight.to(dtype))
 
 
 def _proj(config: LlamaConfig, n_in: int, n_out: int) -> nn.Linear:
@@ -204,9 +214,6 @@ class LlamaAttention(nn.Module):
                                    dequant_dtype=dt)
         else:
             impl = cfg.attention_impl
-            if cfg.packed_sequences:
-                raise NotImplementedError(
-                    "packed_sequences is not yet ported")
             if n_kv != n_heads and impl != "flash":
                 # GQA: repeat the KV heads for the dense and
                 # sequence-parallel paths, as the reference does
@@ -215,7 +222,8 @@ class LlamaAttention(nn.Module):
                 k = k.repeat_interleave(rep, dim=2)
                 v = v.repeat_interleave(rep, dim=2)
             # a padding mask maps to segment ids (pads = segment 0), so
-            # padded SFT batches stay on kernel K1
+            # padded SFT batches stay on kernel K1; packed rows carry
+            # segment ids 1..n already, and go to K1 as they are
             seg = None if attention_mask is None else \
                 attention_mask.to(torch.int32)
             if impl == "flash":
@@ -227,7 +235,13 @@ class LlamaAttention(nn.Module):
                                             segment_ids=seg)
             else:
                 mask = causal_mask(seq, seq, device=hidden.device)[None, None]
-                if attention_mask is not None:
+                if attention_mask is not None and cfg.packed_sequences:
+                    # packed rows: the block-diagonal causal mask of
+                    # equal segment ids (pads, segment 0, see pads)
+                    ids = attention_mask.to(torch.int32)
+                    mask = mask & (ids[:, None, :, None] ==
+                                   ids[:, None, None, :])
+                elif attention_mask is not None:
                     mask = mask & attention_mask[:, None, None, :].bool()
                 out = dot_product_attention(q, k, v, mask=mask)
         out = out.reshape(batch, seq, n_heads * head_dim)

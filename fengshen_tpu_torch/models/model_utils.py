@@ -212,7 +212,8 @@ class AdamW(torch.optim.Optimizer):
 def configure_optimizers(args, total_steps: int,
                          model: torch.nn.Module
                          ) -> tuple[torch.optim.Optimizer, LambdaLR]:
-    """``(AdamW, LambdaLR)`` over ``model``'s parameters; the scheduler's
+    """``(AdamW, LambdaLR)`` over ``model``'s trainable parameters (a
+    frozen one, as LoRA's base, gets no moments); the scheduler's
     ``schedule`` attribute is the schedule function itself.
 
     With every parameter in fp32 the optimizer is ``torch.optim.AdamW``:
@@ -222,7 +223,7 @@ def configure_optimizers(args, total_steps: int,
     whose rounding is optax's."""
     schedule = get_scheduler(args, total_steps)
     mask = decay_mask_fn(model)
-    params = dict(model.named_parameters())
+    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
     groups = [
         {"params": [p for n, p in params.items() if mask[n]],
          "weight_decay": getattr(args, "weight_decay", 0.0)},

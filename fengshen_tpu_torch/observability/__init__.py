@@ -1,14 +1,20 @@
-"""Observability for the port's server: metrics registry, Prometheus
-exposition, trace spans, request timelines and the flight recorder (the
-serving subset of ``fengshen_tpu/observability``, copied, stdlib plus
-``torch.profiler`` for span ranges)."""
+"""Observability for the port's server and trainer: metrics registry,
+Prometheus exposition and the exporter thread, trace spans, request
+timelines, the flight recorder, the jsonl event sink, step statistics
+(tokens/s, MFU, goodput) and the FLOPs estimator (the port's copy of
+``fengshen_tpu/observability``: stdlib plus ``torch.profiler`` for span
+ranges)."""
 
 from fengshen_tpu_torch.observability.buildinfo import (BUILD_INFO_METRIC,
                                                         WARMUP_METRIC,
                                                         record_build_info,
                                                         record_warmup_seconds)
 from fengshen_tpu_torch.observability.exposition import (CONTENT_TYPE_LATEST,
-                                                         render_prometheus)
+                                                         MetricsServer,
+                                                         render_prometheus,
+                                                         start_metrics_server)
+from fengshen_tpu_torch.observability.flops import (estimate_flops_per_token,
+                                                    peak_flops_per_chip)
 from fengshen_tpu_torch.observability.flightrecorder import (
     FlightRecorder, get_flight_recorder)
 from fengshen_tpu_torch.observability.registry import (Counter, Gauge,
@@ -16,6 +22,8 @@ from fengshen_tpu_torch.observability.registry import (Counter, Gauge,
                                                        MetricsRegistry,
                                                        get_registry,
                                                        percentile)
+from fengshen_tpu_torch.observability.sink import JsonlSink
+from fengshen_tpu_torch.observability.stepstats import StepStats
 from fengshen_tpu_torch.observability.timeline import (PHASE_NAMES,
                                                        RequestTimeline)
 from fengshen_tpu_torch.observability.tracectx import (TraceContext,
@@ -25,9 +33,11 @@ from fengshen_tpu_torch.observability.tracing import (current_span_stack,
 
 __all__ = [
     "BUILD_INFO_METRIC", "CONTENT_TYPE_LATEST", "Counter", "FlightRecorder",
-    "Gauge", "Histogram", "MetricsRegistry", "PHASE_NAMES",
-    "RequestTimeline", "TraceContext", "WARMUP_METRIC",
-    "current_span_stack", "get_flight_recorder", "get_registry",
-    "parse_traceparent", "percentile", "record_build_info",
+    "Gauge", "Histogram", "JsonlSink", "MetricsRegistry", "MetricsServer",
+    "PHASE_NAMES", "RequestTimeline", "StepStats", "TraceContext",
+    "WARMUP_METRIC", "current_span_stack", "estimate_flops_per_token",
+    "get_flight_recorder", "get_registry", "parse_traceparent",
+    "peak_flops_per_chip", "percentile", "record_build_info",
     "record_warmup_seconds", "render_prometheus", "span",
+    "start_metrics_server",
 ]

@@ -1,16 +1,20 @@
 """Prometheus text exposition: the port's copy of
-``fengshen_tpu/observability/exposition.py:52 render_prometheus``.
+``fengshen_tpu/observability/exposition.py:52 render_prometheus`` and of
+its exporter thread (``MetricsServer`` :106, ``start_metrics_server``
+:153).
 
 ``render_prometheus(*registries)`` produces the text format (version
 0.0.4); output is byte-deterministic (names, label sets and buckets all
 iterate sorted). The serving REST layer (``api/main.py``) mounts it on
-its ``GET /metrics`` route. The trainer's standalone exporter thread
-(the reference's ``MetricsServer``, :106) is not yet ported.
+its ``GET /metrics`` route; the Trainer's ``--metrics_port`` starts
+:func:`start_metrics_server`, a daemon ``ThreadingHTTPServer`` serving
+``GET /metrics`` and ``/healthz`` for the length of the fit.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import threading
+from typing import Optional, Sequence
 
 from fengshen_tpu_torch.observability.registry import (Counter, Gauge,
                                                        Histogram,
@@ -77,3 +81,57 @@ def render_prometheus(*registries: MetricsRegistry) -> str:
                                f"{_fmt(child.sum)}")
                     out.append(f"{metric.name}_count{labels} {child.count}")
     return "\n".join(out) + "\n" if out else ""
+
+
+class MetricsServer:
+    """Daemon-thread stdlib HTTP exporter for ``GET /metrics``."""
+
+    def __init__(self, host: str, port: int,
+                 registries: Sequence[MetricsRegistry]):
+        import http.server
+
+        regs = tuple(registries)
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet
+                pass
+
+            def do_GET(self):
+                if self.path == "/metrics":
+                    body = render_prometheus(*regs).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     CONTENT_TYPE_LATEST)
+                elif self.path == "/healthz":
+                    body = b'{"status": "ok"}'
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                else:
+                    body = b"not found"
+                    self.send_response(404)
+                    self.send_header("Content-Type", "text/plain")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self._httpd = http.server.ThreadingHTTPServer((host, port),
+                                                      Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True,
+            name="fstpu-metrics-exporter")
+        self._thread.start()
+
+    def close(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=10)
+
+
+def start_metrics_server(
+        port: int, host: str = "0.0.0.0",
+        registries: Optional[Sequence[MetricsRegistry]] = None
+) -> MetricsServer:
+    """Start the exporter thread; ``port=0`` picks a free port
+    (``server.port`` has the real one)."""
+    return MetricsServer(host, port, registries or (get_registry(),))

@@ -17,7 +17,8 @@ registers here with its plain PyTorch version:
   with more than one design (K1, K2 and K4: ``"tensor_core"`` for bf16
   inputs, ``"fp32_fma"`` for fp32) also counts its launches per design
   in ``variants``; K3 counts its launches there per query-window length
-  (``"s1"``, ``"s5"``, ...).
+  (``"s1"``, ``"s5"``, ...). K1 counts its launches given segment ids
+  (padded or packed rows) in ``segmented``.
 """
 
 from __future__ import annotations
@@ -96,10 +97,15 @@ class KernelEntry:
     #: launches per design of a kernel that has more than one (K3: per
     #: query-window length)
     variants: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: launches given segment ids (K1: padded and packed rows)
+    segmented: int = 0
 
-    def count(self, variant: Optional[str] = None) -> None:
-        """One launch (of the design ``variant``, when it has several)."""
+    def count(self, variant: Optional[str] = None,
+              segments: bool = False) -> None:
+        """One launch (of the design ``variant``, when it has several;
+        ``segments``: with segment ids)."""
         self.launches += 1
+        self.segmented += int(segments)
         if variant is not None:
             self.variants[variant] = self.variants.get(variant, 0) + 1
 
@@ -134,6 +140,7 @@ def reset_launch_counts() -> None:
     for entry in _REGISTRY.values():
         entry.launches = 0
         entry.dense_calls = 0
+        entry.segmented = 0
         entry.variants.clear()
 
 

@@ -135,7 +135,7 @@ def cuda_flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kv_heads, head_dim, int(causal), _DTYPE_CODE[q.dtype],
             ctypes.c_void_p(stream))
     _check_rc(lib, rc, "flash attention forward")
-    FWD.count(VARIANT[q.dtype])
+    FWD.count(VARIANT[q.dtype], segments=q_seg is not None)
     return out, lse
 
 
@@ -173,7 +173,7 @@ def cuda_flash_bwd_dkv(q, k, v, out, dout, lse, delta, q_seg=None,
             dv.data_ptr(), batch, q_len, k_len, n_heads, kv_heads, head_dim,
             int(causal), _DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
     _check_rc(lib, rc, "flash attention dK/dV")
-    DKV.count(VARIANT[q.dtype])
+    DKV.count(VARIANT[q.dtype], segments=q_seg is not None)
     return dk, dv
 
 
@@ -194,7 +194,7 @@ def cuda_flash_bwd_dq(q, k, v, out, dout, lse, delta, q_seg=None,
             q_len, k_len, n_heads, kv_heads, head_dim, int(causal),
             _DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
     _check_rc(lib, rc, "flash attention dQ")
-    DQ.count(VARIANT[q.dtype])
+    DQ.count(VARIANT[q.dtype], segments=q_seg is not None)
     return dq
 
 

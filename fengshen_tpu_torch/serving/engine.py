@@ -267,6 +267,57 @@ class Request:
         return self._done.is_set()
 
 
+#: the longest the serve loop steps aside between ticks for callers
+#: blocked on the engine's lock
+YIELD_S = 0.05
+
+
+class _YieldingLock:
+    """The engine's re-entrant lock, counting the threads blocked in
+    ``acquire``. A tick holds the lock for its whole forward and the
+    serve loop takes it again at once; a plain lock lets that loop win
+    the race every time, so ``submit``, ``stats``, ``cancel`` and the
+    drain could wait seconds for an idle engine. The loop steps aside
+    while :attr:`waiting` is non-zero (``_serve_loop``)."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._count = threading.Lock()
+        self.waiting = 0
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        if self._lock.acquire(False):
+            return True
+        if not blocking:
+            return False
+        with self._count:
+            self.waiting += 1
+        try:
+            return self._lock.acquire(True, timeout)
+        finally:
+            with self._count:
+                self.waiting -= 1
+
+    def release(self) -> None:
+        self._lock.release()
+
+    def __enter__(self) -> bool:
+        return self.acquire()
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    # what threading.Condition.wait uses on an RLock
+    def _release_save(self):
+        return self._lock._release_save()
+
+    def _acquire_restore(self, state) -> None:
+        self._lock._acquire_restore(state)
+
+    def _is_owned(self) -> bool:
+        return self._lock._is_owned()
+
+
 class ContinuousBatchingEngine:
     """Continuous batching over one LLaMA-family model.
 
@@ -398,7 +449,8 @@ class ContinuousBatchingEngine:
         #: live SSE token streams, fed at commit time
         self.streams = StreamBook()
         self._draining = False
-        self._cv = threading.Condition()
+        self._lock = _YieldingLock()
+        self._cv = threading.Condition(self._lock)
         self._thread: Optional[threading.Thread] = None
         self._stop_flag = False
 
@@ -1086,6 +1138,12 @@ class ContinuousBatchingEngine:
                 with self._cv:
                     if not self._queue and not self._stop_flag:
                         self._cv.wait(timeout=0.02)
+            # callers blocked on the lock during the tick take it before
+            # the next one (bounded, so a stream of callers cannot stall
+            # the decode)
+            yield_until = time.monotonic() + YIELD_S
+            while self._lock.waiting and time.monotonic() < yield_until:
+                time.sleep(1e-4)
 
     def _dump(self, reason: str, extra: dict) -> None:
         """Write a flight-recorder bundle, if a recorder is attached;

@@ -18,7 +18,9 @@ from fengshen_tpu_torch.models import model_utils
 
 
 class TrainModule:
-    """Subclass and implement ``init_params`` and ``training_loss``."""
+    """Subclass and implement ``init_params`` and ``training_loss``;
+    ``validation_loss`` defaults to the training loss without gradients,
+    and a module that predicts defines ``predict_step(batch, **kw)``."""
 
     def __init__(self, args: Any):
         self.args = args
@@ -33,6 +35,11 @@ class TrainModule:
     # -- losses ----------------------------------------------------------
     def training_loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         raise NotImplementedError
+
+    def validation_loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """The training loss and metrics without gradients (:51)."""
+        with torch.no_grad():
+            return self.training_loss(batch)
 
     # -- optimization ----------------------------------------------------
     def configure_optimizers(self, total_steps: int,

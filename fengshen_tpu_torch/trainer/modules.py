@@ -1,5 +1,6 @@
 """Reusable TrainModules: the port of ``fengshen_tpu/trainer/modules.py``
-(:class:`CausalLMModule`, :16)."""
+(:class:`CausalLMModule`, :16; :class:`LoraTrainModule`, :249, with
+:func:`add_lora_args` and :func:`maybe_wrap_lora`)."""
 
 from __future__ import annotations
 
@@ -104,3 +105,125 @@ class CausalLMModule(TrainModule):
             getattr(cfg, "max_position_embeddings", 0) or 0
         return 6.0 * n + 12.0 * cfg.num_hidden_layers * \
             cfg.hidden_size * seq
+
+
+class LoraTrainModule(TrainModule):
+    """LoRA fine-tuning of any TrainModule (:249). ``init_params`` makes
+    (or loads) the inner module's weights, then adapts the projections
+    ``target_regex`` selects (``ops/lora.init_lora``: the merge happens
+    inside each layer's forward). Every base parameter is frozen
+    (``requires_grad=False``, the reference's ``stop_gradient``) except
+    those matching ``train_regex``, which train fully (the
+    ``modules_to_save`` of standard LoRA: a random-init head frozen
+    would leave the logits a fixed random projection). The optimizer
+    then holds moments for the trainable tensors only, with the
+    no-decay mask of ``model_utils.configure_optimizers``; ``grad_norm``
+    and clipping cover the same tensors. ``pretrained_lora`` (the
+    adapter entries of ``convert.lora_from_jax``) replaces the drawn
+    adapters. ``python -m fengshen_tpu_torch.ops.lora`` merges a
+    checkpoint of this module into a servable directory."""
+
+    def __init__(self, inner: TrainModule, rank: int,
+                 alpha: Optional[float] = None,
+                 target_regex: str = r"(q_proj|k_proj|v_proj|o_proj)",
+                 train_regex: Optional[str] = None):
+        super().__init__(inner.args)
+        self.inner = inner
+        self.rank, self.alpha, self.target_regex = rank, alpha, \
+            target_regex
+        self.train_regex = train_regex
+        self.model = getattr(inner, "model", None)
+        self.config = getattr(inner, "config", None)
+        self.pretrained_lora: Optional[dict] = None
+
+    def setup(self, stage: str = "fit") -> None:
+        self.inner.setup(stage)
+
+    def init_params(self, generator: torch.Generator) -> torch.nn.Module:
+        from fengshen_tpu_torch.ops.lora import (init_lora,
+                                                 train_path_matches)
+        model = self.inner.init_params(generator)
+        init_lora(model, generator, self.rank, self.target_regex,
+                  alpha=self.alpha)
+        if self.pretrained_lora is not None:
+            _, unexpected = model.load_state_dict(
+                self.pretrained_lora, strict=False)
+            adapters = {k for k in model.state_dict()
+                        if k.rsplit(".", 1)[-1] in
+                        ("lora_a", "lora_b", "lora_scale")}
+            if unexpected or adapters - set(self.pretrained_lora):
+                lost = sorted(adapters - set(self.pretrained_lora))
+                raise KeyError(f"pretrained_lora does not fit the adapted "
+                               f"model: unexpected {unexpected[:4]}, "
+                               f"missing {lost[:4]}")
+        base_names = [n for n, _ in model.named_parameters()
+                      if n.rsplit(".", 1)[-1] not in ("lora_a", "lora_b")]
+        if self.train_regex and not any(
+                train_path_matches(n, self.train_regex)
+                for n in base_names):
+            raise ValueError(
+                f"lora train_regex {self.train_regex!r} matches no "
+                "base parameter (--lora_train_modules typo?)")
+        for name, p in model.named_parameters():
+            p.requires_grad_(name.rsplit(".", 1)[-1] in ("lora_a", "lora_b")
+                             or train_path_matches(name, self.train_regex))
+        self.model = model
+        return model
+
+    def training_loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        return self.inner.training_loss(batch)
+
+    def validation_loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        return self.inner.validation_loss(batch)
+
+    def predict_step(self, batch: dict, **kw):
+        hook = getattr(self.inner, "predict_step", None)
+        if hook is None:
+            raise AttributeError(
+                f"{type(self.inner).__name__} defines no predict_step")
+        return hook(batch, **kw)
+
+    def flops_per_token(self) -> Optional[float]:
+        return self.inner.flops_per_token()
+
+    def tokens_in_batch(self, batch) -> int:
+        return self.inner.tokens_in_batch(batch)
+
+
+def add_lora_args(parser, targets_default: str,
+                  train_default: Optional[str] = None):
+    """The shared ``--lora_*`` flags (:375)."""
+    parser.add_argument(
+        "--lora_rank", default=0, type=int,
+        help="LoRA fine-tuning: freeze the base model and train rank-r "
+             "adapters (merge back with `python -m "
+             "fengshen_tpu_torch.ops.lora`). 0 = full fine-tune")
+    parser.add_argument("--lora_alpha", default=None, type=float,
+                        help="LoRA scale numerator (default 2*rank)")
+    parser.add_argument(
+        "--lora_targets", default=targets_default, type=str,
+        help="regex over projection paths (model/layers/0/self_attn/"
+             "q_proj) selecting the ones that get adapters")
+    parser.add_argument(
+        "--lora_train_modules", default=train_default, type=str,
+        help="regex of base parameters (lm_head/weight) to train fully "
+             "alongside the adapters")
+    return parser
+
+
+def maybe_wrap_lora(module: TrainModule, args) -> TrainModule:
+    """``module`` in a :class:`LoraTrainModule` when ``--lora_rank`` is
+    set (:394), refusing ``--offload_params`` with it as the reference
+    does."""
+    if not getattr(args, "lora_rank", 0):
+        return module
+    if getattr(args, "offload_params", False):
+        raise ValueError("--lora_rank already shrinks optimizer state "
+                         "to the adapters; combine with "
+                         "--offload_optimizer if needed, not "
+                         "--offload_params")
+    return LoraTrainModule(module, rank=args.lora_rank,
+                           alpha=getattr(args, "lora_alpha", None),
+                           target_regex=args.lora_targets,
+                           train_regex=getattr(args, "lora_train_modules",
+                                               None))

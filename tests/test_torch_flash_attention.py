@@ -336,3 +336,133 @@ def test_cuda_lse_and_row_with_no_valid_key(cuda_device):
     torch.testing.assert_close(out, ref_out, atol=1e-4, rtol=0)
     for got, want in zip(grads, ref_grads):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_packed_segments_at_ziya_width(cuda_device):
+    """K1 on packed SFT rows at Ziya-13B's attention width (4 rows of
+    1024, 40 heads of 128, bf16): segment ids 1..n per row with restarts
+    of 40-400 tokens and a pad tail (segment 0), causal, against the
+    plain versions in fp32, with the bounds of
+    ``test_cuda_kernels_match_plain`` (bf16: 2^-7 of each element's
+    scale); every launch counts as one with segment ids."""
+    batch, seq, heads, head_dim = 4, 1024, 40, 128
+    rng = np.random.RandomState(21)
+    ids = np.zeros((batch, seq), np.int32)
+    for b in range(batch):
+        pos, seg = 0, 1
+        end = seq - rng.randint(0, 200)
+        while pos < end:
+            n = min(rng.randint(40, 400), end - pos)
+            ids[b, pos:pos + n] = seg
+            pos, seg = pos + n, seg + 1
+    assert (ids.max(1) >= 2).all()
+    args = [torch.from_numpy(rng.randn(batch, seq, heads, head_dim)
+                             .astype(np.float32)).to(cuda_device)
+            .to(torch.bfloat16) for _ in range(4)]
+    seg = torch.from_numpy(ids).to(cuda_device)
+    entries = [get_entry(n) for n in ("flash_attention_fwd",
+                                      "flash_attention_bwd_dkv",
+                                      "flash_attention_bwd_dq")]
+    before = [(e.launches, e.segmented) for e in entries]
+    tq, tk, tv = (a.clone().requires_grad_(True) for a in args[:3])
+    out = kernel_flash_attention(tq, tk, tv, seg, seg, True)
+    grads = torch.autograd.grad(out, (tq, tk, tv), args[3])
+    torch.cuda.synchronize()
+    assert [(e.launches - a, e.segmented - b)
+            for e, (a, b) in zip(entries, before)] == [(1, 1)] * 3
+    from fengshen_tpu_torch.ops.kernels.flash_attention import cuda_flash_fwd
+    _, lse = cuda_flash_fwd(*args[:3], seg, seg, True)
+    f32 = [a.float() for a in args]
+    ref_out, ref_lse = torch_flash_forward(*f32[:3], seg, seg, True)
+    ref_grads = torch_flash_bwd(*f32, lse, attention_delta(out.detach(),
+                                                            args[3]),
+                                seg, seg, True)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    for got, want, what in zip([out, *grads], [ref_out, *ref_grads],
+                               ("out", "dq", "dk", "dv")):
+        assert torch.isfinite(got.float()).all(), what
+        assert _worst_ratio(got, want, 2 ** -7) <= 1.0, what
+
+
+@pytest.mark.gpu
+def test_cuda_lora_resume_is_bitwise(cuda_device, tmp_path):
+    """A packed LoRA fine-tune through ``finetune_ziya_llama.main`` on the
+    card (2 layers, hidden 256, 2 heads of 128, fp32 base, bf16 compute,
+    K1): a run stopped after its step-2 checkpoint and resumed ends with
+    the losses and adapters of the uninterrupted 4-step run, bitwise (no
+    kernel on the path accumulates with atomics; the frozen embedding
+    takes no gradient)."""
+    import json
+
+    from fengshen_tpu_torch.examples.ziya_llama import finetune_ziya_llama
+    from fengshen_tpu_torch.models.llama import LlamaConfig
+    from fengshen_tpu_torch.ops.lora import lora_state
+    from fengshen_tpu_torch.pipelines.text_generation import IdTokenizer
+    from fengshen_tpu_torch.trainer import trainer as trainer_mod
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2,
+                      max_position_embeddings=256, attention_impl="flash",
+                      gradient_checkpointing=True)
+    cfg.save_pretrained(str(tmp_path / "model"))
+    rng = np.random.RandomState(3)
+    with open(tmp_path / "sft.jsonl", "w") as f:
+        for _ in range(16):
+            f.write(json.dumps({
+                "query": " ".join(map(str, rng.randint(3, 500, 10))),
+                "answer": " ".join(map(str, rng.randint(3, 500, 40)))})
+                + "\n")
+
+    def run(name, stop_at=None):
+        ckpt = tmp_path / f"ckpt_{name}"
+        argv = [str(x) for x in (
+            "--model_path", tmp_path / "model", "--train_file",
+            tmp_path / "sft.jsonl", "--packed", "--packed_rows", 2,
+            "--max_seq_length", 128, "--train_batchsize", 4,
+            "--lora_rank", 4, "--max_steps", 4, "--learning_rate", 1e-2,
+            "--log_every_n_steps", 1, "--every_n_train_steps", 2,
+            "--save_ckpt_path", ckpt, "--load_ckpt_path", ckpt,
+            "--default_root_dir", tmp_path / name, "--device", "cuda")]
+
+        class Stop(Exception):
+            pass
+
+        class Kill:
+            def on_train_step_end(self, trainer, state):
+                if trainer.global_step == stop_at:
+                    raise Stop
+
+        real = trainer_mod.Trainer.fit
+
+        def fit(self, module, datamodule):
+            if stop_at is not None:
+                self.callbacks.append(Kill())
+            return real(self, module, datamodule)
+
+        try:
+            trainer_mod.Trainer.fit = fit
+            trainer = finetune_ziya_llama.main(argv,
+                                               tokenizer=IdTokenizer())
+        except Stop:
+            return None
+        finally:
+            trainer_mod.Trainer.fit = real
+        return ({e["step"]: e["loss"] for e in trainer.history
+                 if "loss" in e},
+                {k: v.cpu() for k, v in lora_state(trainer.state.model)
+                 .items()})
+
+    import signal
+    saved = signal.getsignal(signal.SIGTERM), dict(trainer_mod._SIGTERM_STATE)
+    try:
+        losses, adapters = run("whole")
+        assert run("cut", stop_at=2) is None
+        resumed, resumed_adapters = run("cut")
+    finally:
+        signal.signal(signal.SIGTERM, saved[0])
+        trainer_mod._SIGTERM_STATE.clear()
+        trainer_mod._SIGTERM_STATE.update(saved[1])
+    assert sorted(resumed) == [3, 4]
+    assert all(resumed[s] == losses[s] for s in (3, 4)), (resumed, losses)
+    for k, v in adapters.items():
+        assert torch.equal(resumed_adapters[k], v), k

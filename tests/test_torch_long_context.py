@@ -20,7 +20,8 @@ matches it bitwise).
 
 Hygiene: the JAX Trainer installs a process-wide SIGTERM handler and a
 process-global mesh; the fixture saves both (and the environment) and
-restores them; torch runs on one intra-op thread.
+restores them; the port's Trainer installs its own handler, put back
+after each test; torch runs on one intra-op thread.
 """
 
 import argparse
@@ -49,6 +50,19 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _port_sigterm_restored():
+    """The port's Trainer installs the process-wide SIGTERM handler: put
+    the previous handler and the module's state back after each test."""
+    from fengshen_tpu_torch.trainer import trainer as port_trainer
+    handler = signal.getsignal(signal.SIGTERM)
+    state = dict(port_trainer._SIGTERM_STATE)
+    yield
+    signal.signal(signal.SIGTERM, handler)
+    port_trainer._SIGTERM_STATE.clear()
+    port_trainer._SIGTERM_STATE.update(state)
 
 
 @pytest.fixture(scope="module")

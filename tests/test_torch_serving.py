@@ -37,6 +37,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -446,6 +447,39 @@ def test_engine_backpressure_and_config_gates(port_model):
     with pytest.raises(ValueError):
         EngineConfig(kv_layout="ring")
 
+
+def test_busy_engine_lets_blocked_callers_in_between_ticks(port_model,
+                                                            monkeypatch):
+    """A tick holds the engine's lock for its whole forward and the serve
+    loop takes it again at once. Callers blocked on it (``stats``,
+    ``submit``, the drain) must get it before the next tick, not once the
+    engine is idle: each ``stats`` call here waits at most a few ticks of
+    30 ms, where a lock that the loop always wins keeps it seconds."""
+    eng = ContinuousBatchingEngine(
+        port_model, EngineConfig(num_slots=2, buckets=(16,),
+                                 max_new_tokens=40), device="cpu")
+    tick = eng._decode_tick
+
+    def slow_tick():
+        time.sleep(0.03)        # a forward on the card: the GIL is free
+        return tick()
+
+    monkeypatch.setattr(eng, "_decode_tick", slow_tick)
+    eng.start()
+    waits = []
+    try:
+        req = eng.submit(_prompts()[0])
+        while not req.done:
+            t0 = time.perf_counter()
+            active = eng.stats()["slots_active"]
+            waits.append((time.perf_counter() - t0, active))
+            time.sleep(0.005)
+    finally:
+        eng.stop()
+    assert req.state == "finished" and len(req.tokens) == 40
+    # most calls land while the lane decodes, none after a long wait
+    assert sum(a for _, a in waits) >= 10, waits
+    assert max(w for w, _ in waits) < 0.3, waits
 
 def test_reference_config_fields_all_load():
     """Every field of the reference's ``EngineConfig`` and
