@@ -112,8 +112,26 @@ Phases (each raises on failure, so any failure exits non-zero):
    to the one before; NaN steps 5-6 rewind to the step-4 checkpoint and
    dump a flight-recorder bundle; the merge CLI's directory, served
    through ``Pipeline(model=dir)`` and K3 (the CLI run with no
-   ``--device``, so on the card), gives the in-memory merge's tokens. Free disk is checked first; GiB and seconds written and read
-   are printed.
+   ``--device``, so on the card), gives the in-memory merge's tokens.
+   Free disk is checked first; GiB and seconds written and read are
+   printed;
+12. classification: ``finetune_classification.main`` with the flags of
+   the reference's AFQMC shell on Erlangshen-MegatronBert-1.3B
+   (``configs/erlangshen_megatron_bert_1.3b.json``: all 24 layers at
+   full width, fp32 weights made on the card from a seed, bf16 compute)
+   over AFQMC-shaped splits made from a seed and the phase's own pair
+   tokenizer: 40 steps of 8 x 128, validation every 10 steps with
+   checkpoints kept by ``val_acc``, then ``predict.json`` from the best
+   one, which ``--do_predict_only`` must write again; on those weights
+   the bf16 forward held to fp32 compute (the padding mask dropped, a
+   planted fault, must fail that bar) and a row's fp32 logits held
+   across padding of 64 and 128; a 2-layer model at that width written
+   as an HF-named checkpoint and read back through
+   ``load_torch_checkpoint`` with bitwise logits, its encoder imported
+   by the classification module. K1-K4 launch 0 times (the family runs
+   the dense attention). Free disk is checked first; step time,
+   samples/s, tokens/s, MFU, peak memory and checkpoint GiB/s are
+   printed.
 
 Phase 3 also holds K2 (fused LM-head cross-entropy: forward, dx, dK) to
 its plain version at the long-context path's shape (T = 32767 tokens,
@@ -3677,6 +3695,419 @@ def phase_lora_resume(workdir: Path, prompts, card):
     return k3
 
 
+# -- phase 12 -----------------------------------------------------------
+
+#: classification phase (12): Erlangshen-MegatronBert-1.3B at its
+#: published geometry, run with the flags of the reference's non-offload
+#: AFQMC shell (finetune_classification_bert-3.9B_afqmc.sh), AFQMC-shaped
+#: splits made from a seed (train, dev, test rows), CLS_STEPS steps with
+#: validation every CLS_VAL_EVERY
+ERLANGSHEN_CONFIG = ROOT / "configs" / "erlangshen_megatron_bert_1.3b.json"
+CLS_ROWS = {"train": 256, "dev": 64, "test": 64}
+CLS_STEPS, CLS_VAL_EVERY, CLS_BATCH, CLS_LEN = 40, 10, 8, 128
+#: AFQMC sentences are short: 8-28 characters each, so a pair fits 64
+#: tokens and the padding check can encode it at 64 and at 128
+CLS_CHARS, CLS_SENT_LEN = 3000, (8, 29)
+#: free GiB the phase needs: 3 kept weights-only fp32 saves of ~5 GB and
+#: a fourth before the worst is pruned, and a 2-layer checkpoint
+CLS_MIN_FREE_GIB = 22
+#: the 24-layer forward in bf16 against fp32 compute on the same weights
+#: and dev batch: ||logits_bf16 - logits_fp32|| / ||logits_fp32||. bf16
+#: rounds every product and activation to 2^-8 relative; through 24
+#: pre-LN layers and the pooler a sound H100 run moved the logits by
+#: 2.8e-3 (PERF.md §6), so 2e-2 leaves seven times that. The padding
+#: mask dropped (the planted fault) lets every token attend to the pads,
+#: 70 % of the dev rows' tokens: 0.174 in that run
+CLS_BF16_RTOL = 2e-2
+#: the steps traced with torch.profiler (the window opens before step 5
+#: and closes before step 7: steps 5 and 6, no validation among them),
+#: and the kernel-name groups their device time is summed by (the first
+#: group whose key a kernel's name holds)
+CLS_PROFILE = (4, 6)
+CLS_PROFILE_GROUPS = (
+    ("GEMMs", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
+    ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
+    ("copies and casts", ("direct_copy", "copy_kernel")),
+    ("reductions", ("reduce_kernel", "softmax", "norm")),
+    ("elementwise", ("elementwise", "vectorized")),
+    ("random", ("distribution", "philox", "curand")))
+#: a row's fp32 logits with its padding grown from 64 to 128 tokens: the
+#: pads' scores get a -1e9 bias and exp() of it is 0 in fp32, so only
+#: GEMMs of another shape differ, by fp32 rounding
+CLS_PAD_ATOL = 1e-4
+CLS_CKPT_LAYERS = 2
+
+
+class PairTokenizer:
+    """A character-level tokenizer with the call signature of HF's
+    ``BertTokenizer`` that ``TaskCollator`` uses (the card's machine has
+    no ``transformers``): ``[CLS] a [SEP] b [SEP]`` with token types 0
+    and 1, or ``[CLS] a [SEP]``; ``longest_first`` truncation; right
+    padding to ``max_length``; numpy arrays. Its vocabulary is the
+    phase's own characters after the five special tokens."""
+
+    pad_token_id, unk_id, cls_id, sep_id = 0, 1, 2, 3
+    eos_token, sep_token = None, "[SEP]"
+
+    def __init__(self, chars: str):
+        self.vocab = {c: i + 5 for i, c in enumerate(chars)}
+
+    def __call__(self, texts, pairs=None, max_length=128,
+                 padding="max_length", truncation=True,
+                 return_tensors="np"):
+        import numpy as np
+        del padding, truncation, return_tensors
+        out = {k: np.zeros((len(texts), max_length), np.int64)
+               for k in ("input_ids", "token_type_ids", "attention_mask")}
+        for r, text in enumerate(texts):
+            a = [self.vocab.get(c, self.unk_id) for c in text]
+            b = None if pairs is None else \
+                [self.vocab.get(c, self.unk_id) for c in pairs[r]]
+            budget = max_length - (2 if b is None else 3)
+            while len(a) + len(b or ()) > budget:
+                (a if b is None or len(a) > len(b) else b).pop()
+            ids = [self.cls_id] + a + [self.sep_id]
+            types = [0] * len(ids)
+            if b is not None:
+                ids += b + [self.sep_id]
+                types += [1] * (len(b) + 1)
+            out["input_ids"][r, :len(ids)] = ids
+            out["token_type_ids"][r, :len(ids)] = types
+            out["attention_mask"][r, :len(ids)] = 1
+        return out
+
+
+def afqmc_rows(n: int, chars: str, rng, labelled: bool, start: int = 0):
+    def sentence():
+        return "".join(rng.choice(list(chars), rng.randint(*CLS_SENT_LEN)))
+    rows = [{"id": start + i, "sentence1": sentence(),
+             "sentence2": sentence()} for i in range(n)]
+    if labelled:
+        for r in rows:
+            r["label"] = str(rng.randint(2))
+    return rows
+
+
+def cls_argv(workdir: Path, model_dir: Path, data_dir: Path,
+             extra=()) -> list:
+    """The AFQMC shell's flags (finetune_classification_bert-3.9B_afqmc.sh,
+    less its FSDP degree), cut to CLS_STEPS steps."""
+    return [str(x) for x in (
+        "--pretrained_model_path", model_dir,
+        "--model_type", "huggingface-megatron_bert",
+        "--output_save_path", workdir / "predict.json",
+        "--data_dir", data_dir, "--train_data", "train.json",
+        "--valid_data", "dev.json", "--test_data", "test.json",
+        "--train_batchsize", CLS_BATCH, "--valid_batchsize", 32,
+        "--max_length", CLS_LEN, "--texta_name", "sentence1",
+        "--textb_name", "sentence2", "--label_name", "label",
+        "--id_name", "id", "--learning_rate", 1e-5,
+        "--weight_decay", 1e-2, "--warmup", 0.01, "--num_labels", 2,
+        "--monitor", "val_acc", "--mode", "max", "--save_top_k", 3,
+        "--every_n_train_steps", 0, "--save_weights_only", "True",
+        "--dirpath", workdir / "ckpt",
+        "--filename", "model-{epoch:02d}-{val_acc:.4f}",
+        "--max_epochs", 2, "--max_steps", CLS_STEPS,
+        "--gradient_clip_val", 1.0, "--val_check_interval", CLS_VAL_EVERY,
+        "--precision", "bf16", "--default_root_dir", workdir / "runs",
+        "--log_every_n_steps", 1, "--seed", 0, "--device", "cuda",
+        "--profile_steps", ",".join(map(str, CLS_PROFILE)), *extra)]
+
+
+def kernel_launches() -> dict:
+    from fengshen_tpu_torch.ops.kernels import _REGISTRY
+    return {name: e.launches for name, e in _REGISTRY.items()}
+
+
+def logits_of(model, batch, dtype: str, mask=True):
+    """The classifier's fp32 logits with the compute dtype set to
+    ``dtype`` (and the attention mask dropped when ``mask`` is
+    false)."""
+    import torch
+    cfg = model.config
+    before, cfg.dtype = cfg.dtype, dtype
+    try:
+        with torch.no_grad():
+            logits = model(batch["input_ids"],
+                           batch["attention_mask"] if mask else None,
+                           batch["token_type_ids"])
+        return logits.float()
+    finally:
+        cfg.dtype = before
+
+
+def phase_classification(workdir: Path, card):
+    """``finetune_classification.main`` with the AFQMC shell's flags on
+    Erlangshen-MegatronBert-1.3B at full width and all 24 layers (fp32
+    weights made on the card from a seed, bf16 compute, dropout 0.1):
+    CLS_STEPS steps of 8 x 128, validation every CLS_VAL_EVERY steps
+    with checkpoints kept by ``val_acc``, then ``predict.json`` from the
+    best one, which a ``--do_predict_only`` run must write again. On the
+    best weights: the bf16 forward held to fp32 compute (the padding
+    mask dropped must fail that bar), and a row's logits held across
+    padding of 64 and 128. A 2-layer model at the same width written as
+    an HF-named checkpoint and read back through
+    ``load_torch_checkpoint`` gives bitwise logits, and the
+    classification module imports its encoder. K1-K4 launch 0 times:
+    the family runs the dense attention, as the reference does."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from fengshen_tpu_torch.examples.classification import (
+        finetune_classification as fc)
+    from fengshen_tpu_torch.models.megatron_bert import (
+        MegatronBertConfig, MegatronBertForSequenceClassification)
+    from fengshen_tpu_torch.models.megatron_bert import convert
+    from fengshen_tpu_torch.ops.kernels import reset_launch_counts
+    from fengshen_tpu_torch.utils.convert_common import (
+        load_torch_checkpoint)
+    from fengshen_tpu_torch.utils.universal_checkpoint import (
+        committed_steps, read_meta)
+
+    free = shutil.disk_usage(workdir).free / 2**30
+    if free < CLS_MIN_FREE_GIB:
+        raise AssertionError(f"classification: {free:.1f} GiB free under "
+                             f"{workdir}, the phase needs "
+                             f"{CLS_MIN_FREE_GIB}")
+    t_phase = time.perf_counter()
+    failures = []
+    raw = json.loads(ERLANGSHEN_CONFIG.read_text())
+    model_dir = workdir / "erlangshen"
+    model_dir.mkdir(parents=True, exist_ok=True)
+    (model_dir / "config.json").write_text(json.dumps(raw))
+    rng = np.random.RandomState(12)
+    chars = "".join(chr(0x4E00 + i) for i in range(CLS_CHARS))
+    tok = PairTokenizer(chars)
+    data_dir = workdir / "afqmc"
+    data_dir.mkdir(exist_ok=True)
+    start, splits = 0, {}
+    for split, labelled in (("train", True), ("dev", True),
+                            ("test", False)):
+        splits[split] = afqmc_rows(CLS_ROWS[split], chars, rng, labelled,
+                                   start)
+        write_jsonl(data_dir / f"{split}.json", splits[split])
+        start += CLS_ROWS[split]
+    labels = {r["label"] for r in splits["train"]}
+    argv = cls_argv(workdir, model_dir, data_dir)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t_fit = time.perf_counter()
+    trainer = fc.main(argv, tokenizer=tok)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    launches = kernel_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    history = trainer.history
+    cb = next(c for c in trainer.callbacks if hasattr(c, "stats"))
+    io = dict(cb.stats)
+    n_params = next(e["n_params"] for e in history
+                    if e.get("event") == "fit_start")
+    flops_per_token = next(e["flops_per_token"] for e in history
+                           if "flops_per_token" in e)
+    losses = {e["step"]: e["loss"] for e in history if "loss" in e}
+    vals = {e["step"]: e["val_acc"] for e in history if "val_acc" in e}
+    profiled_steps = set(range(CLS_PROFILE[0] + 1, CLS_PROFILE[1] + 1))
+    after_val = {s + 1 for s in vals} | profiled_steps
+    step_s = sorted(e["step_time_s"] for e in history
+                    if "step_time_s" in e and e["step"] >= 2 and
+                    e["step"] not in after_val)
+    from torch.autograd import DeviceType
+    dev_us, n_kernels = {}, 0
+    for ev in trainer.profiler.events():
+        # a GPU user annotation (the optimizer's step range) spans
+        # kernels counted on their own
+        if ev.device_type == DeviceType.CUDA and not getattr(
+                ev, "is_user_annotation", False):
+            n_kernels += 1
+            dev_us[ev.name] = dev_us.get(ev.name, 0) + \
+                ev.time_range.elapsed_us()
+    n_prof = len(profiled_steps)
+    busy_ms = sum(dev_us.values()) / 1e3 / n_prof
+    gemm_ms = sum(us for name, us in dev_us.items() if any(
+        k in name for k in ("gemm", "nvjet", "cutlass", "sm90_xmma")))
+    groups, top = {g: 0.0 for g, _ in CLS_PROFILE_GROUPS}, {}
+    groups["other"] = 0.0
+    for name, us in dev_us.items():
+        group = next((g for g, keys in CLS_PROFILE_GROUPS
+                      if any(k in name for k in keys)), "other")
+        groups[group] += us / 1e3 / n_prof
+        top[name[:80]] = top.get(name[:80], 0.0) + us / 1e3 / n_prof
+    profile = {
+        "steps": sorted(profiled_steps),
+        "wall_ms_per_step": [round(e["step_time_s"] * 1e3, 3)
+                             for e in history if "step_time_s" in e and
+                             e["step"] in profiled_steps],
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": [round(1 - busy_ms / (e["step_time_s"] * 1e3),
+                                    4) for e in history
+                              if "step_time_s" in e and
+                              e["step"] in profiled_steps],
+        "gemm_ms_per_step": gemm_ms / 1e3 / n_prof,
+        "kernels_per_step": n_kernels / n_prof,
+        "group_ms_per_step": groups,
+        "top_kernels_ms_per_step": dict(sorted(
+            top.items(), key=lambda kv: -kv[1])[:8])}
+    median_s = step_s[len(step_s) // 2]
+    tokens = CLS_BATCH * CLS_LEN
+    ckpt = workdir / "ckpt"
+    kept = committed_steps(str(ckpt))
+    ranked = sorted(vals, key=lambda s: (-vals[s], s))
+    first = (workdir / "predict.json.0").read_text()
+    rows = [json.loads(x) for x in first.splitlines()]
+    test_ids = list(range(CLS_ROWS["train"] + CLS_ROWS["dev"], start))
+    if len(losses) != CLS_STEPS or not np.isfinite(
+            list(losses.values())).all():
+        failures.append(f"losses {losses}")
+    if sorted(vals) != list(range(CLS_VAL_EVERY, CLS_STEPS + 1,
+                                  CLS_VAL_EVERY)):
+        failures.append(f"validations at {sorted(vals)}")
+    if kept != sorted(ranked[:3]) or any(
+            read_meta(str(ckpt), s).get("monitor", {}).get("value")
+            != vals[s] for s in kept):
+        failures.append(f"kept {kept}, val_acc {vals}")
+    if [r["id"] for r in rows] != test_ids or \
+            not {r["label"] for r in rows} <= labels:
+        failures.append(f"predict.json ids {[r['id'] for r in rows][:8]}"
+                        f"..., labels {sorted({r['label'] for r in rows})}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # predict-only from the best checkpoint: the same file
+    reset_launch_counts()
+    again = fc.main(argv + ["--do_predict_only"], tokenizer=tok)
+    launches = {k: v + kernel_launches()[k] for k, v in launches.items()}
+    predict_only_equal = (workdir / "predict.json.0").read_text() == first
+    if not predict_only_equal or again.global_step != ranked[0]:
+        failures.append(f"--do_predict_only restored step "
+                        f"{again.global_step} (best {ranked[0]}), file "
+                        f"equal {predict_only_equal}")
+    pcb = next(c for c in again.callbacks if hasattr(c, "stats"))
+    io["restores"] += pcb.stats["restores"]
+    io["bytes_read"] += pcb.stats["bytes_read"]
+    io["restore_s"] += pcb.stats["restore_s"]
+    model = again.state.model
+    shutil.rmtree(ckpt)
+
+    # bf16 against fp32 compute on the best weights, and the planted
+    # fault: the padding mask dropped
+    dm = fc.TaskDataModel(fc.build_parser().parse_args(argv),
+                          tokenizer=tok)
+    dev = {k: torch.as_tensor(v).cuda() for k, v in
+           next(iter(dm.val_dataloader())).items()}
+    reset_launch_counts()
+    want = logits_of(model, dev, "float32")
+    got = logits_of(model, dev, "bfloat16")
+    no_mask = logits_of(model, dev, "bfloat16", mask=False)
+    rel = ((got - want).norm() / want.norm()).item()
+    rel_fault = ((no_mask - want).norm() / want.norm()).item()
+    pad_share = 1.0 - dev["attention_mask"].float().mean().item()
+    if rel > CLS_BF16_RTOL or rel_fault <= CLS_BF16_RTOL:
+        failures.append(f"bf16 vs fp32 logits rel L2 {rel} (limit "
+                        f"{CLS_BF16_RTOL}); mask dropped {rel_fault}")
+
+    # a row's fp32 logits with its padding grown from 64 to 128
+    short = fc.build_parser().parse_args(argv + ["--max_length", "64"])
+    dm64 = fc.TaskDataModel(short, tokenizer=tok)
+    rows8 = [dm64.valid_data[i] for i in range(8)]
+    b64 = {k: torch.as_tensor(v).cuda()
+           for k, v in dm64.collator(rows8).items()}
+    b128 = {k: torch.as_tensor(v).cuda()
+            for k, v in dm.collator(rows8).items()}
+    same_tokens = bool((b128["input_ids"][:, :64] == b64["input_ids"]).all()
+                       and not b128["attention_mask"][:, 64:].any())
+    pad_diff = (logits_of(model, b64, "float32") -
+                logits_of(model, b128, "float32")).abs().max().item()
+    if not same_tokens or pad_diff > CLS_PAD_ATOL:
+        failures.append(f"padding 64 -> 128 moved the fp32 logits by "
+                        f"{pad_diff} (limit {CLS_PAD_ATOL}; rows fit 64: "
+                        f"{same_tokens})")
+    launches = {k: v + kernel_launches()[k] for k, v in launches.items()}
+    del again, model, dev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a 2-layer model at Erlangshen width through an HF-named checkpoint
+    # (written by this script's own safetensors writer, read by the port's)
+    cfg2 = MegatronBertConfig.from_pretrained(str(model_dir))
+    cfg2.num_hidden_layers = CLS_CKPT_LAYERS
+    src = MegatronBertForSequenceClassification(
+        cfg2, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(4))
+    hf_dir = workdir / "hf2"
+    hf_dir.mkdir()
+    hf_state = convert.params_to_torch_state(src.state_dict(), cfg2)
+    t0 = time.perf_counter()
+    written = write_safetensors(hf_dir / "model.safetensors", hf_state)
+    hf_write_s = time.perf_counter() - t0
+    (hf_dir / "config.json").write_text(json.dumps(
+        dict(raw, num_hidden_layers=CLS_CKPT_LAYERS)))
+    t0 = time.perf_counter()
+    loaded = load_torch_checkpoint(str(hf_dir))
+    dst = MegatronBertForSequenceClassification(cfg2, device="cuda",
+                                                init=False)
+    dst.load_state_dict(convert.torch_to_params(
+        loaded, cfg2, head="sequence_classification"))
+    torch.cuda.synchronize()
+    hf_read_s = time.perf_counter() - t0
+    batch = {k: v[:8] for k, v in b128.items()}
+    with torch.no_grad():
+        ckpt_bitwise = all(torch.equal(
+            src(batch["input_ids"], batch["attention_mask"],
+                batch["token_type_ids"]),
+            dst(batch["input_ids"], batch["attention_mask"],
+                batch["token_type_ids"])) for _ in range(2))
+    module = fc.ClassificationModule(fc.build_parser().parse_args(
+        cls_argv(workdir, hf_dir, data_dir)), device="cuda")
+    module.init_params(torch.Generator(device="cuda").manual_seed(0))
+    imported = all(torch.equal(v, src.bert.state_dict()[k]) for k, v in
+                   module.model.bert_encoder.state_dict().items())
+    if not ckpt_bitwise or not imported:
+        failures.append(f"2-layer HF checkpoint: logits bitwise "
+                        f"{ckpt_bitwise}, encoder imported {imported}")
+    del src, dst, module, loaded
+    shutil.rmtree(hf_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: v + kernel_launches()[k] for k, v in launches.items()}
+    if any(launches.values()):
+        failures.append(f"kernel launches on the classification path: "
+                        f"{launches}")
+    tokens_per_s = tokens / median_s
+    say("classification", card=card, config=ERLANGSHEN_CONFIG.name,
+        n_params=n_params, steps=CLS_STEPS, batch=CLS_BATCH,
+        max_length=CLS_LEN, fit_s=fit_s, step_time_s_median=median_s,
+        step_time_s_range=[step_s[0], step_s[-1]],
+        step1_s=next(e["step_time_s"] for e in history
+                     if e.get("step") == 1 and "step_time_s" in e),
+        samples_per_s=CLS_BATCH / median_s, tokens_per_s=tokens_per_s,
+        flops_per_token=flops_per_token,
+        mfu=flops_per_token * tokens_per_s / BF16_FLOPS,
+        peak_gib=peak_gib, losses=losses, val_acc=vals, kept_steps=kept,
+        best_step=ranked[0], predict_rows=len(rows),
+        predict_only_equal=predict_only_equal,
+        bf16_vs_fp32_rel_l2=rel, mask_dropped_rel_l2=rel_fault,
+        dev_pad_share=pad_share, pad_64_128_max_abs=pad_diff,
+        hf_ckpt_bitwise=ckpt_bitwise, hf_ckpt_encoder_imported=imported,
+        hf_ckpt_gib=written / 2**30,
+        hf_ckpt_write_gib_per_s=written / 2**30 / max(hf_write_s, 1e-9),
+        hf_ckpt_read_gib_per_s=written / 2**30 / max(hf_read_s, 1e-9),
+        ckpt_saves=io["saves"], ckpt_gib_written=io["bytes_written"] / 2**30,
+        ckpt_write_gib_per_s=io["bytes_written"] / 2**30 /
+        max(io["save_s"], 1e-9),
+        ckpt_gib_read=io["bytes_read"] / 2**30,
+        ckpt_read_gib_per_s=io["bytes_read"] / 2**30 /
+        max(io["restore_s"], 1e-9),
+        profile=profile, kernel_launches=launches,
+        phase_s=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("classification: " + "; ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -3745,6 +4176,9 @@ def main() -> int:
         mark("10_lora_finetune")
         launches += phase_lora_resume(Path(tmp), prompts, card)
         mark("11_lora_resume")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_classification(Path(tmp), card)
+        mark("12_classification")
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     main_row = rows[("paged", 1)]

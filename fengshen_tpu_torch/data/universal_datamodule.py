@@ -6,12 +6,16 @@ Split files (``--train_file`` and friends) are read with the stdlib
 ``json`` module, as a JSON array or as one JSON object per line; the
 reference reads them through HF ``datasets``, which the port does not
 use. The train loader is the resumable one (it starts past the
-trainer's ``consumed_samples``); the validation loader (``--val_file``,
-the ``validation`` split) walks its split in order, batch by batch, as
-the reference's ``_SimpleBatchSampler`` does. Named registry datasets
-(``--datasets_name``), csv files and the test split are not yet ported
-and are refused. Batches are numpy dicts; the Trainer moves them to the
-device. There is one data-parallel rank.
+trainer's ``consumed_samples``); the validation and test loaders
+(``--val_file``, ``--test_file``: the ``validation`` and ``test``
+splits) walk their split in order, batch by batch, the tail short of a
+batch dropped, as the reference's ``_SimpleBatchSampler`` does; the
+prediction loader walks the test split the same way but keeps every
+row, its tail batch filled by cycling its own rows (the sampler's
+``drop_last=False``, as the classification example's prediction loader
+runs it). Named registry datasets (``--datasets_name``) and csv files
+are not yet ported and are refused. Batches are numpy dicts; the
+Trainer moves them to the device. There is one data-parallel rank.
 """
 
 from __future__ import annotations
@@ -98,18 +102,41 @@ class DataLoader:
 
 
 class _SimpleBatchSampler:
-    """The validation sampler of the reference (``_SimpleBatchSampler``,
-    ``universal_datamodule.py:94``, unshuffled) on one rank: batches of
-    ``batch`` indices in order, the tail short of a full batch
-    dropped."""
+    """The reference's plain epoch sampler (``_SimpleBatchSampler``,
+    ``universal_datamodule.py:94``): batches of ``batch`` indices, in
+    order or shuffled per epoch from ``seed + epoch``, this rank's slice
+    of each global batch of ``batch * world``. With ``drop_last`` the
+    tail short of a global batch is dropped; without it the tail batch
+    is filled to ``batch`` rows by cycling the rank's own rows (or the
+    global chunk's, when the rank's slice is empty), so every rank
+    yields as many batches and duplicates can be dropped by id."""
 
-    def __init__(self, total: int, batch: int):
+    def __init__(self, total: int, batch: int, rank: int = 0,
+                 world: int = 1, shuffle: bool = False, seed: int = 0,
+                 drop_last: bool = True):
         self.total, self.batch = total, batch
+        self.rank, self.world = rank, world
+        self.shuffle, self.seed = shuffle, seed
+        self.drop_last = drop_last
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
 
     def __iter__(self):
-        for start in range(0, self.total - self.total % self.batch,
-                           self.batch):
-            yield list(range(start, start + self.batch))
+        order = np.arange(self.total)
+        if self.shuffle:
+            order = np.random.RandomState(self.seed + self.epoch
+                                          ).permutation(self.total)
+        global_batch = self.batch * self.world
+        usable = self.total - self.total % global_batch if self.drop_last \
+            else self.total
+        for start in range(0, usable, global_batch):
+            chunk = order[start:start + global_batch]
+            mine = chunk[self.rank * self.batch:(self.rank + 1) * self.batch]
+            if len(mine) < self.batch:
+                mine = np.resize(mine if len(mine) else chunk, self.batch)
+            yield [int(i) for i in mine]
 
 
 class UniversalDataModule:
@@ -165,14 +192,6 @@ class UniversalDataModule:
                         getattr(args, attr))
         else:
             self.datasets = {}
-        known = (getattr(args, "train_datasets_field", "train"),
-                 getattr(args, "val_datasets_field", "validation"))
-        others = [k for k, v in self.datasets.items()
-                  if k not in known and v is not None]
-        if others:
-            raise NotImplementedError(
-                f"splits {others}: test and prediction loaders are not "
-                "yet ported (the train and validation splits are)")
 
     def train_dataloader(self):
         """The resumable train loader: a seeded random (or, with
@@ -205,7 +224,31 @@ class UniversalDataModule:
         ds = self.datasets.get(field)
         if ds is None:
             return None
-        batch_size = getattr(self.args, "val_batchsize", 16)
-        return DataLoader(ds, _SimpleBatchSampler(len(ds), batch_size),
-                          self.collate_fn,
-                          global_batch_size=batch_size)
+        return self._in_order(ds, getattr(self.args, "val_batchsize", 16))
+
+    def test_dataloader(self):
+        """The test loader over the ``test_datasets_field`` split
+        (``--test_batchsize`` rows, in order, the tail short of a batch
+        dropped, :244), or None without that split."""
+        ds = self.datasets.get(getattr(self.args, "test_datasets_field",
+                                       "test"))
+        if ds is None:
+            return None
+        return self._in_order(ds, getattr(self.args, "test_batchsize", 16))
+
+    def predict_dataloader(self):
+        """The prediction loader over the test split: as
+        :meth:`test_dataloader`, but every row is kept (the tail batch
+        filled by cycling its rows); None without that split."""
+        ds = self.datasets.get(getattr(self.args, "test_datasets_field",
+                                       "test"))
+        if ds is None:
+            return None
+        return self._in_order(ds, getattr(self.args, "test_batchsize", 16),
+                              drop_last=False)
+
+    def _in_order(self, ds, batch_size: int, drop_last: bool = True):
+        seed = getattr(self.args, "seed", 42)
+        return DataLoader(ds, _SimpleBatchSampler(
+            len(ds), batch_size, seed=seed, drop_last=drop_last),
+            self.collate_fn, global_batch_size=batch_size)

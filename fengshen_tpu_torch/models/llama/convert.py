@@ -8,8 +8,9 @@ checkpoint directory (``*.safetensors`` if there are any, sorted, else
 model on its device in ``param_dtype``, so the host never holds more
 than one tensor of it. The safetensors format is read here (an 8-byte
 little-endian header length, a JSON header of ``dtype``, ``shape`` and
-``data_offsets``, then the raw bytes), with no ``safetensors`` package;
-``.bin`` files go through ``torch.load(weights_only=True, mmap=True)``.
+``data_offsets``, then the raw bytes) by ``utils/convert_common.py``,
+with no ``safetensors`` package; ``.bin`` files go through
+``torch.load(weights_only=True, mmap=True)``.
 The port's modules use HF's names and ``[out, in]`` layout, so the map
 of the reference's ``torch_to_params`` (:22) is a check of the names
 (:func:`torch_to_params`).
@@ -28,17 +29,17 @@ the compute dtype, as ``configuration_llama.py`` sets by default.
 from __future__ import annotations
 
 import glob
-import json
-import math
 import os
-import struct
-from typing import Any, Iterable, Iterator, Mapping, Optional
+from typing import Any, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 
 from fengshen_tpu_torch.device import resolve_device
 from fengshen_tpu_torch.models.llama.configuration_llama import LlamaConfig
+from fengshen_tpu_torch.utils.convert_common import (  # noqa: F401
+    SAFETENSORS_DTYPES, check_safetensors_complete, iter_safetensors,
+    read_safetensors_header, write_safetensors, write_safetensors_stream)
 
 
 def _tensor(x: Any) -> torch.Tensor:
@@ -131,13 +132,6 @@ def params_to_numpy(state_dict: Mapping, config: LlamaConfig) -> dict:
 
 # -- HF checkpoint directories ---------------------------------------------
 
-#: safetensors dtype names -> torch dtypes
-SAFETENSORS_DTYPES = {
-    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
-    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
-    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
-    "BOOL": torch.bool}
-
 #: non-parameter buffers some HF checkpoints carry: the rotary
 #: frequencies, which the port computes from ``rope_theta``
 _SKIPPED_SUFFIXES = (".rotary_emb.inv_freq",)
@@ -190,45 +184,6 @@ def _checked_keys(keys, config: LlamaConfig) -> list:
     return want
 
 
-def read_safetensors_header(path: str) -> tuple:
-    """``(header, data_start)`` of a safetensors file: the JSON header
-    (tensor name -> ``dtype``, ``shape``, ``data_offsets``; and
-    ``__metadata__``) and the byte offset its data starts at."""
-    with open(path, "rb") as f:
-        head = f.read(8)
-        if len(head) != 8:
-            raise ValueError(f"{path}: not a safetensors file (too short)")
-        (n,) = struct.unpack("<Q", head)
-        header = json.loads(f.read(n))
-    return header, 8 + n
-
-
-def iter_safetensors(path: str, names=None) -> Iterator[tuple]:
-    """Yield ``(name, tensor)`` for each tensor of a safetensors file
-    (those in ``names`` when given), one at a time, read from disk into
-    a CPU tensor of its stored dtype."""
-    header, start = read_safetensors_header(path)
-    with open(path, "rb") as f:
-        for name, info in header.items():
-            if name == "__metadata__" or (names is not None and
-                                          name not in names):
-                continue
-            dtype = SAFETENSORS_DTYPES.get(info["dtype"])
-            if dtype is None:
-                raise ValueError(f"{path}: tensor {name!r} has dtype "
-                                 f"{info['dtype']!r}, which is not read")
-            begin, end = info["data_offsets"]
-            shape = list(info["shape"])
-            if end == begin:
-                yield name, torch.empty(shape, dtype=dtype)
-                continue
-            f.seek(start + begin)
-            buf = bytearray(end - begin)
-            if f.readinto(buf) != len(buf):
-                raise ValueError(f"{path}: tensor {name!r} is truncated")
-            yield name, torch.frombuffer(buf, dtype=dtype).reshape(shape)
-
-
 def checkpoint_files(path: str) -> tuple:
     """``(format, files)`` of a checkpoint directory, as the reference
     picks them (:114-124): every ``*.safetensors`` if there is one,
@@ -262,62 +217,6 @@ def _iter_file(fmt: str, path: str, names) -> Iterator[tuple]:
     for name in list(state):
         if name in names:
             yield name, state.pop(name)
-
-
-#: torch dtype -> safetensors dtype name
-_SAFETENSORS_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
-
-
-def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> int:
-    """Write ``tensors`` as one safetensors file, tensor by tensor (see
-    :func:`write_safetensors_stream`). Returns the bytes written."""
-    return write_safetensors_stream(
-        path, [(name, t.dtype, t.shape) for name, t in tensors.items()],
-        tensors.values())
-
-
-def write_safetensors_stream(path: str, specs, tensors: Iterable) -> int:
-    """Write a safetensors file from ``specs`` (``(name, dtype, shape)``
-    in file order) and ``tensors``, an iterable that gives each tensor
-    in that order. The header is built from the specs; then each tensor
-    is taken from ``tensors``, copied to the host alone and appended,
-    so neither a model on the card nor a checkpoint streamed from disk
-    passes through host memory whole. A tensor whose dtype or shape
-    differs from its spec raises. Returns the bytes written."""
-    specs = [(name, dtype, list(shape)) for name, dtype, shape in specs]
-    header, offset = {}, 0
-    for name, dtype, shape in specs:
-        n = math.prod(shape) * dtype.itemsize
-        header[name] = {"dtype": _SAFETENSORS_NAMES[dtype],
-                        "shape": shape,
-                        "data_offsets": [offset, offset + n]}
-        offset += n
-    head = json.dumps(header).encode()
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(head)) + head)
-        for (name, dtype, shape), t in zip(specs, tensors, strict=True):
-            if t.dtype != dtype or list(t.shape) != shape:
-                raise ValueError(
-                    f"{path}: tensor {name!r} is {t.dtype} "
-                    f"{list(t.shape)}, its header says {dtype} {shape}")
-            if t.numel():
-                f.write(memoryview(t.detach().contiguous().cpu().reshape(
-                    -1).view(torch.uint8).numpy()))
-            del t
-    return 8 + len(head) + offset
-
-
-def check_safetensors_complete(path: str) -> dict:
-    """The header of a safetensors file whose size covers every
-    tensor's data; a shorter (truncated) file raises ``ValueError``
-    before anything is read."""
-    header, start = read_safetensors_header(path)
-    end = max((info["data_offsets"][1] for k, info in header.items()
-               if k != "__metadata__"), default=0)
-    if os.path.getsize(path) < start + end:
-        raise ValueError(f"{path}: truncated ({os.path.getsize(path)} "
-                         f"bytes, header needs {start + end})")
-    return header
 
 
 def _owners(path: str) -> tuple:

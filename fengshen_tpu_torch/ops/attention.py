@@ -12,10 +12,17 @@ CPU tensors, and calls with a bias, a mask, dropout or segment ids, take
 the dense path with the layout expanded into a mask (``np.kron``), as
 the reference falls back, and count one ``dense_calls`` on K4's forward
 entry. The two differ on a query block with no present key block: K4
-gives zeros, the dense path the uniform mean of V. The impls ``"ring"``,
-``"ulysses"`` and ``"sequence"`` (:127-136) go to
+gives zeros, the dense path the uniform mean of V. ``impl="flash"``
+(:113-119) goes to ``ops/flash_attention.flash_attention`` with the mask
+folded into the additive bias and the segment ids passed through: a
+CUDA tensor launches kernel K1, which raises on a bias (a mask
+included) by its rules; a CPU tensor takes the plain blockwise path,
+bias and all, as the reference's fallback does. Attention dropout there
+raises ``ValueError``, as it does in the reference. The impls
+``"ring"``, ``"ulysses"`` and ``"sequence"`` (:127-136) go to
 ``ops/ulysses_attention.sequence_parallel_attention``, which on one
-device is flash attention (kernel K1).
+device is flash attention (kernel K1). Any other impl raises
+``ValueError`` (:131).
 """
 
 from __future__ import annotations
@@ -85,6 +92,12 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl in ("dense", "sparse"):
         return _dense_attention(q, k, v, bias, dropout_rng, dropout_rate,
                                 deterministic)
+    if impl == "flash":
+        from fengshen_tpu_torch.ops.flash_attention import flash_attention
+        return flash_attention(q, k, v, bias=bias, dropout_rng=dropout_rng,
+                               dropout_rate=dropout_rate,
+                               deterministic=deterministic,
+                               segment_ids=segment_ids)
     if impl in ("ring", "ulysses", "sequence"):
         if bias is not None:
             raise ValueError(f"impl={impl!r} supports causal/segment "
@@ -96,6 +109,4 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   "sequence": "auto"}[impl]
         return sequence_parallel_attention(q, k, v, segment_ids=segment_ids,
                                            causal=True, prefer=prefer)
-    raise NotImplementedError(
-        f"attention impl {impl!r} is not yet ported (dense, sparse, ring, "
-        "ulysses and sequence are)")
+    raise ValueError(f"unknown attention impl {impl!r}")

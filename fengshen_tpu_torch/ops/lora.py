@@ -70,20 +70,20 @@ def merge_delta(weight: torch.Tensor, lora_a: torch.Tensor,
 
 
 class LoraLinear(nn.Linear):
-    """An ``nn.Linear`` with a rank-``r`` adapter. ``weight`` is the base
-    module's parameter itself (not copied); ``lora_a [in, r]`` and
-    ``lora_b [r, out]`` are new parameters in the weight's dtype;
-    ``lora_scale`` (fp32 scalar) is a buffer."""
+    """An ``nn.Linear`` with a rank-``r`` adapter. ``weight`` and
+    ``bias`` are the base module's parameters themselves (not copied;
+    the adapter changes the weight only, as the reference adapts the
+    ``kernel`` leaf); ``lora_a [in, r]`` and ``lora_b [r, out]`` are new
+    parameters in the weight's dtype; ``lora_scale`` (fp32 scalar) is a
+    buffer."""
 
     def __init__(self, base: nn.Linear, lora_a: torch.Tensor,
                  lora_b: torch.Tensor, scale: float):
         nn.Module.__init__(self)
-        if base.bias is not None:
-            raise ValueError("LoRA adapts bias-free projections")
         self.in_features, self.out_features = base.in_features, \
             base.out_features
         self.weight = base.weight
-        self.register_parameter("bias", None)
+        self.bias = base.bias
         self.lora_a = nn.Parameter(lora_a)
         self.lora_b = nn.Parameter(lora_b)
         self.register_buffer("lora_scale", torch.tensor(
@@ -94,9 +94,13 @@ class LoraLinear(nn.Linear):
                            self.lora_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x @ merged^T`` with the merged weight cast to ``x``'s dtype:
-        the model's projections (``modeling_llama._linear``) come here."""
-        return nn.functional.linear(x, self.merged_weight().to(x.dtype))
+        """``x @ merged^T (+ bias)`` with the merged weight and the bias
+        cast to ``x``'s dtype: the models' projections
+        (``modeling_llama._linear``, ``models/layers.dense``) come
+        here."""
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return nn.functional.linear(x, self.merged_weight().to(x.dtype),
+                                    bias)
 
     def extra_repr(self) -> str:
         return (f"in_features={self.in_features}, out_features="
@@ -164,6 +168,7 @@ def merge_lora(model: nn.Module) -> nn.Module:
             lin = nn.Linear(m.in_features, m.out_features, bias=False,
                             device="meta", dtype=m.weight.dtype)
             lin.weight = nn.Parameter(merged, requires_grad=False)
+            lin.bias = m.bias
             _replace(model, name, lin)
     return model
 

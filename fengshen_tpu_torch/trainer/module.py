@@ -4,7 +4,14 @@ A module owns the model, its loss and its optimizer configuration; the
 Trainer owns the device, the step loop and logging. Where the reference
 passes params into a pure loss, the port's model holds its parameters:
 :meth:`init_params` makes them from a generator and returns the model,
-and :meth:`training_loss` reads them from the model.
+and :meth:`training_loss` reads them from the model. Where the
+reference passes each step's rng into the loss, the Trainer hands the
+module a host ``torch.Generator`` per step (micro-batch) through
+:meth:`set_dropout_generator`, seeded from ``--seed`` and the step
+(``ops/dropout.step_generator``), before it calls
+:meth:`training_loss`: a module whose model drops out reads
+``self.dropout_generator``, and a resumed run replays the same masks.
+Modules without dropout ignore it.
 """
 
 from __future__ import annotations
@@ -24,6 +31,14 @@ class TrainModule:
 
     def __init__(self, args: Any):
         self.args = args
+        #: the current training step's dropout generator (None outside
+        #: a training step)
+        self.dropout_generator: Optional[torch.Generator] = None
+
+    def set_dropout_generator(self,
+                              generator: Optional[torch.Generator]) -> None:
+        """Called by the Trainer before each training forward."""
+        self.dropout_generator = generator
 
     # -- model -----------------------------------------------------------
     def setup(self, stage: str = "fit") -> None:

@@ -170,6 +170,9 @@ class LoraTrainModule(TrainModule):
         self.model = model
         return model
 
+    def set_dropout_generator(self, generator) -> None:
+        self.inner.set_dropout_generator(generator)
+
     def training_loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         return self.inner.training_loss(batch)
 

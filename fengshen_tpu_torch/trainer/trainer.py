@@ -40,6 +40,7 @@ from fengshen_tpu_torch.device import resolve_device
 from fengshen_tpu_torch.observability import (FlightRecorder, JsonlSink,
                                               StepStats, get_registry,
                                               record_build_info)
+from fengshen_tpu_torch.ops.dropout import step_generator
 from fengshen_tpu_torch.trainer.module import TrainModule
 from fengshen_tpu_torch.trainer.train_state import TrainState
 
@@ -168,6 +169,11 @@ class Trainer:
         self.fault_plan = None
         #: every logged entry, in order (also written to metrics.jsonl)
         self.history: list = []
+        #: the latest logged value of every numeric metric (what a
+        #: checkpoint's ``--monitor`` and ``--filename`` read)
+        self.callback_metrics: dict = {}
+        #: the epoch of the step loop (0 before the first)
+        self.current_epoch = 0
         self.state: Optional[TrainState] = None
         #: the last ``--profile_steps`` window's ``torch.profiler``
         self.profiler = None
@@ -234,8 +240,11 @@ class Trainer:
         micro-batches (their mean loss and mean gradient, as the
         reference's scan). ``loss`` and ``grad_norm`` (over the trainable
         tensors, before clipping) join the module's metrics, as device
-        tensors. A fault plan's NaN steps (``TrainState.step`` values,
-        read when the step is built) make ``loss`` NaN there."""
+        tensors. Before each micro-batch's forward the module gets its
+        dropout generator, seeded from ``--seed``, the step and the
+        micro-batch (the reference's ``fold_in``s, :334-341). A fault
+        plan's NaN steps (``TrainState.step`` values, read when the step
+        is built) make ``loss`` NaN there."""
         accum = max(int(getattr(self.args, "accumulate_grad_batches", 1)),
                     1)
         model = module.model
@@ -244,10 +253,13 @@ class Trainer:
         nan_steps = frozenset(plan.nan_loss_at_steps) \
             if plan is not None else frozenset()
 
+        seed = getattr(self.args, "seed", 42)
+
         def grad_step(batch: dict, step: int = 0) -> dict:
             for p in params:
                 p.grad = None
             if accum == 1:
+                module.set_dropout_generator(step_generator(seed, step))
                 loss, metrics = module.training_loss(batch)
                 loss.backward()
                 metrics = dict(metrics)
@@ -261,6 +273,8 @@ class Trainer:
                 for i in range(accum):
                     mb = {k: v[i * size:(i + 1) * size]
                           for k, v in batch.items()}
+                    module.set_dropout_generator(
+                        step_generator(seed, step, i))
                     l, m = module.training_loss(mb)
                     (l / accum).backward()
                     loss = loss + l.detach()
@@ -271,6 +285,7 @@ class Trainer:
                             last[k] = v
                 loss = loss / accum
                 metrics = {**last, **{k: v / accum for k, v in sums.items()}}
+            module.set_dropout_generator(None)
             metrics["loss"] = loss.detach()
             metrics["grad_norm"] = global_norm(
                 [p.grad for p in params if p.grad is not None])
@@ -540,6 +555,7 @@ class Trainer:
 
         epoch, done = 0, self.global_step >= max_steps
         while not done:
+            self.current_epoch = epoch
             if hasattr(train_loader, "set_epoch"):
                 train_loader.set_epoch(epoch)
             rewound = False
@@ -580,7 +596,7 @@ class Trainer:
                     self._log(entry)
                     window_t0, window_steps = time.perf_counter(), 0
                 if _crossed(prev_step, self.global_step, val_interval):
-                    self._run_validation(module, datamodule, state)
+                    self._validate_in_fit(module, datamodule, state)
                 for cb in self.callbacks:
                     if hasattr(cb, "on_train_step_end"):
                         cb.on_train_step_end(self, state)
@@ -631,7 +647,7 @@ class Trainer:
                     epoch >= max(getattr(args, "max_epochs", 1), 1):
                 done = True
             if not val_interval:
-                self._run_validation(module, datamodule, state)
+                self._validate_in_fit(module, datamodule, state)
 
         if profile_range is not None and self._profiling:
             self._stop_profile()
@@ -681,17 +697,27 @@ class Trainer:
                    "path": path})
 
     # -- validation ------------------------------------------------------
-    def _run_validation(self, module, datamodule, state) -> None:
+    def _validate_in_fit(self, module, datamodule, state) -> None:
+        """A validation sweep of the fit, then the callbacks'
+        ``on_validation_end`` (a checkpoint monitoring a val metric)."""
+        if self._run_validation(module, datamodule, state) is None:
+            return
+        for cb in self.callbacks:
+            if hasattr(cb, "on_validation_end"):
+                cb.on_validation_end(self, state)
+
+    def _run_validation(self, module, datamodule, state) -> Optional[dict]:
         """One sweep over the val loader (at most ``--limit_val_batches``
         batches): ``val_loss`` weighted by batch rows, each metric
         averaged over the batches that emit it, weighted by rows, and
         count-like metrics (``n_*``, ``*_sum``, ``*_count``) summed
-        (:1185)."""
+        (:1185). Returns the logged entry, or None without validation
+        data."""
         loader = self._wrap_loader(
             getattr(datamodule, "val_dataloader", lambda: None)(),
             stage="val")
         if loader is None:
-            return
+            return None
         limit = getattr(self.args, "limit_val_batches", 0)
         losses, metric_sums = [], {}
 
@@ -724,6 +750,8 @@ class Trainer:
                 key = k if k.startswith("val_") else f"val_{k}"
                 entry[key] = total if w < 0 else total / max(w, 1e-9)
             self._log(entry)
+            return entry
+        return None
 
     # -- logging ---------------------------------------------------------
     def _log(self, entry: dict) -> None:
@@ -731,6 +759,9 @@ class Trainer:
         flight recorder's ring, appended to
         ``<default_root_dir>/metrics.jsonl`` and echoed to stdout."""
         self.history.append(entry)
+        self.callback_metrics.update(
+            {k: v for k, v in entry.items() if k != "step" and
+             isinstance(v, (int, float)) and not isinstance(v, bool)})
         self._flightrec.record(entry)
         self._sink(entry)
 

@@ -21,6 +21,21 @@ written and read one at a time (the model on the card never passes
 through host memory whole). ``--save_top_k`` keeps the newest steps
 (-1: all). A save is idempotent per step.
 
+``--monitor`` naming a logged metric (``val_acc``; the default
+``step`` names none) makes the callback act as the reference's
+Lightning ``ModelCheckpoint`` does (the reference's orbax callback
+reads the flag but keeps the newest steps): each save records the
+metric's latest logged value in ``meta.json``; without
+``--every_n_train_steps`` a save follows each validation sweep
+(:meth:`on_validation_end`) instead of the end of the fit;
+``--save_top_k`` keeps the steps with the best values under ``--mode``
+(``max`` or ``min``; on a tie the older step stays); and an eval
+restore (``weights_only``) takes the best step (:meth:`best_step`).
+Steps saved without a value (a preemption's) are kept newest-first
+among themselves. ``--filename`` is formatted as Lightning formats it
+(``model-{epoch:02d}-{val_acc:.4f}`` -> ``model-epoch=01-val_acc=0.5312``)
+and recorded in ``meta.json``.
+
 A restore walks the steps newest to oldest: a step whose data cannot be
 read (missing or truncated files) is rejected with a
 ``checkpoint_restore_rejected`` event and the next older one is tried;
@@ -37,14 +52,16 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import time
 from typing import Any, Optional
 
 import torch
 
-from fengshen_tpu_torch.models.llama.convert import (
-    check_safetensors_complete, iter_safetensors, write_safetensors)
+from fengshen_tpu_torch.utils.convert_common import (
+    SAFETENSORS_DTYPES, check_safetensors_complete, iter_safetensors,
+    write_safetensors)
 
 PARAMS_FILE = "params.safetensors"
 OPTIMIZER_FILE = "optimizer.safetensors"
@@ -69,6 +86,32 @@ def committed_steps(path: str) -> list:
 def latest_step(path: str) -> Optional[int]:
     steps = committed_steps(path)
     return steps[-1] if steps else None
+
+
+def format_checkpoint_name(template: str, metrics: dict) -> str:
+    """Lightning's checkpoint name: each ``{name[:spec]}`` becomes
+    ``name=<value formatted by spec>``; a name without a value reads
+    0. A template its values cannot fill (a float under ``:d``) is
+    returned as it is: the name never fails a save."""
+    values = dict(metrics)
+    named = template
+    for group in re.findall(r"(\{.*?)[:\}]", template):
+        name = group[1:]
+        named = named.replace(group, name + "={" + name)
+        values.setdefault(name, 0)
+    try:
+        return named.format(**values)
+    except (ValueError, KeyError, IndexError):
+        return template
+
+
+def read_meta(path: str, step: int) -> dict:
+    """The ``meta.json`` of a committed step ({} when unreadable)."""
+    try:
+        with open(os.path.join(path, str(step), META_FILE)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
 
 
 def _state_entries(model: torch.nn.Module) -> dict:
@@ -111,6 +154,13 @@ class UniversalCheckpoint:
         self.load_path = getattr(args, "load_ckpt_path", None)
         every_n = getattr(args, "every_n_train_steps", None)
         self.every_n_train_steps = int(every_n) if every_n else 0
+        monitor = getattr(args, "monitor", "step")
+        #: the logged metric that ranks the saves, or None
+        self.monitor = None if monitor in (None, "", "step") else monitor
+        self.mode = getattr(args, "mode", "max")
+        if self.mode not in ("max", "min"):
+            raise ValueError(f"--mode {self.mode!r}: max or min")
+        self._saved_this_fit = False
         #: saves and restores of this callback: counts, bytes, seconds
         self.stats = {"saves": 0, "bytes_written": 0, "save_s": 0.0,
                       "restores": 0, "bytes_read": 0, "restore_s": 0.0}
@@ -137,6 +187,14 @@ class UniversalCheckpoint:
                 "consumed_samples": int(trainer.consumed_samples),
                 "global_samples": int(trainer.consumed_samples),
                 **state.checkpoint_meta()}
+        metrics = {"epoch": int(getattr(trainer, "current_epoch", 0)),
+                   "step": step,
+                   **getattr(trainer, "callback_metrics", {})}
+        meta["filename"] = format_checkpoint_name(
+            getattr(self.args, "filename", "model-{step:02d}"), metrics)
+        if self.monitor is not None and self.monitor in metrics:
+            meta["monitor"] = {"name": self.monitor,
+                               "value": float(metrics[self.monitor])}
         if not getattr(self.args, "save_weights_only", False):
             tensors, opt_meta = state.optimizer_payload()
             nbytes += write_safetensors(
@@ -151,17 +209,46 @@ class UniversalCheckpoint:
             raise RuntimeError(f"checkpoint step {step} did not commit "
                                f"under {self.save_path}")
         self._prune()
+        self._saved_this_fit = True
+        log = getattr(trainer, "_log", None)
+        if log is not None and self.monitor is not None:
+            log({"event": "checkpoint_saved", "ckpt_step": step,
+                 "filename": meta["filename"],
+                 "monitor": meta.get("monitor")})
         self.stats["saves"] += 1
         self.stats["bytes_written"] += nbytes
         self.stats["save_s"] += time.perf_counter() - t0
+
+    def _ranked(self, path: str) -> tuple:
+        """``(scored, unscored)`` committed steps of ``path``: the steps
+        with a value of the monitored metric, best first (on a tie the
+        older first), and the others, newest first."""
+        steps = committed_steps(path)
+        if self.monitor is None:
+            return [], steps[::-1]
+        values = {}
+        for step in steps:
+            mon = read_meta(path, step).get("monitor") or {}
+            if mon.get("name") == self.monitor:
+                values[step] = float(mon["value"])
+        sign = -1.0 if self.mode == "max" else 1.0
+        scored = sorted(values, key=lambda st: (sign * values[st], st))
+        return scored, [st for st in steps[::-1] if st not in values]
+
+    def best_step(self, path: Optional[str] = None) -> Optional[int]:
+        """The step with the best value of the monitored metric under
+        ``path`` (default: the save path), or None."""
+        scored, _ = self._ranked(path or self.save_path)
+        return scored[0] if scored else None
 
     def _prune(self) -> None:
         top_k = getattr(self.args, "save_top_k", 3)
         if top_k in (-1, None):
             return
-        steps = committed_steps(self.save_path)
-        for old in steps[:max(len(steps) - max(int(top_k), 1), 0)]:
-            shutil.rmtree(os.path.join(self.save_path, str(old)))
+        keep = max(int(top_k), 1)
+        for group in self._ranked(self.save_path):
+            for old in group[keep:]:
+                shutil.rmtree(os.path.join(self.save_path, str(old)))
 
     def wait(self) -> None:
         """Saves are synchronous: nothing is in flight."""
@@ -173,8 +260,6 @@ class UniversalCheckpoint:
         model: names, shapes and dtypes must agree."""
         header = check_safetensors_complete(
             os.path.join(path, str(step), PARAMS_FILE))
-        from fengshen_tpu_torch.models.llama.convert import \
-            SAFETENSORS_DTYPES
         want = {k: (tuple(v.shape), v.dtype)
                 for k, v in _state_entries(model).items()}
         got = {k: (tuple(v["shape"]), SAFETENSORS_DTYPES.get(v["dtype"]))
@@ -235,7 +320,11 @@ class UniversalCheckpoint:
         if not path or not os.path.isdir(path):
             return state
         path = os.path.abspath(path)
-        steps = committed_steps(path)[::-1]
+        scored, unscored = self._ranked(path)
+        # an eval restore takes the best monitored step; a resume the
+        # newest
+        steps = scored + unscored if weights_only else \
+            committed_steps(path)[::-1]
         if not steps:
             return state
         log = getattr(trainer, "_log", None) or (lambda entry: None)
@@ -286,9 +375,19 @@ class UniversalCheckpoint:
                 (prev // self.every_n_train_steps):
             self.save(state, trainer)
 
+    def on_validation_end(self, trainer: Any, state: Any) -> None:
+        """With a monitored metric and no ``--every_n_train_steps``, save
+        after each validation sweep (Lightning's ``ModelCheckpoint``)."""
+        if self.monitor is not None and not self.every_n_train_steps and \
+                self.monitor in getattr(trainer, "callback_metrics", {}):
+            self.save(state, trainer)
+
     def on_fit_end(self, trainer: Any, state: Any) -> None:
-        """Save at the end with ``--save_last`` or without
-        ``--every_n_train_steps`` (:334)."""
-        if getattr(self.args, "save_last", False) or \
-                not self.every_n_train_steps:
+        """Save at the end with ``--save_last``, or without
+        ``--every_n_train_steps`` (:334) unless a monitored metric has
+        already chosen the saves of this fit."""
+        if getattr(self.args, "save_last", False) or (
+                not self.every_n_train_steps and not (
+                    self.monitor is not None and self._saved_this_fit)):
             self.save(state, trainer, sync=True)
+        self._saved_this_fit = False

@@ -105,6 +105,16 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):
         main as finetune_main
     with pytest.raises(RuntimeError, match="device='cpu'"):
         finetune_main(["--model_path", str(tmp_path / "model")])
+    from fengshen_tpu_torch.examples.classification.finetune_classification \
+        import main as classification_main
+    from fengshen_tpu_torch.models.megatron_bert import (
+        MegatronBertConfig, MegatronBertModel)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        classification_main(["--pretrained_model_path",
+                             str(tmp_path / "model"), "--model_type",
+                             "huggingface-megatron_bert"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MegatronBertModel(MegatronBertConfig.small_test_config())
     # a model asked for on the CPU runs there
     out = generate(model, [[5, 6]], max_new_tokens=2, device="cpu")
     assert out.shape == (1, 4)

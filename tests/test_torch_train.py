@@ -439,9 +439,13 @@ def test_main_runs_the_sft_path_from_files(tmp_path):
 def test_datamodule_reads_json_and_jsonl_and_refuses_other_splits(tmp_path):
     """The local-file branch reads a JSON array or JSON lines with the
     stdlib; the train batches follow the reference's seeded sampler and
-    the validation split's batches the reference's in-order loader; the
-    test split is refused (not yet ported)."""
+    the validation and test splits' batches the reference's in-order
+    loader (tail dropped); the prediction loader keeps every row, its
+    tail batch cycled, as the reference's ``_SimpleBatchSampler`` with
+    ``drop_last=False`` gives it. csv files are still refused."""
     from fengshen_tpu.data import UniversalDataModule as JaxDataModule
+    from fengshen_tpu.data.universal_datamodule import (
+        DataLoader as JaxLoader, _SimpleBatchSampler as JaxSampler)
     from fengshen_tpu_torch.data import UniversalDataModule
     records = _records(8, seed=1)
     (tmp_path / "a.json").write_text(json.dumps(records))
@@ -472,9 +476,28 @@ def test_datamodule_reads_json_and_jsonl_and_refuses_other_splits(tmp_path):
             np.testing.assert_array_equal(g[key], w[key])
     args = port_sft.parse_args(_argv(tmp_path, **{
         "--train_file": tmp_path / "a.json",
-        "--test_file": tmp_path / "a.json"}))
-    with pytest.raises(NotImplementedError, match="test"):
-        UniversalDataModule(collate_fn=collator, args=args)
+        "--test_file": tmp_path / "b.jsonl", "--test_batchsize": 3}))
+    port_dm = UniversalDataModule(collate_fn=collator, args=args)
+    jax_dm = JaxDataModule(collate_fn=collator, args=args, datasets={
+        "train": records, "test": records})
+    want_predict = JaxLoader(records, JaxSampler(
+        len(records), 3, 0, 1, False, seed=SEED, drop_last=False),
+        collator, global_batch_size=3)
+    for got, want, n in (
+            (port_dm.test_dataloader(), jax_dm.test_dataloader(), 2),
+            (port_dm.predict_dataloader(), want_predict, 3)):
+        got, want = list(got), list(want)
+        assert len(got) == len(want) == n
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for key in w:
+                np.testing.assert_array_equal(g[key], w[key])
+    assert UniversalDataModule(collate_fn=collator, args=port_sft.parse_args(
+        _argv(tmp_path))).predict_dataloader() is None
+    with pytest.raises(NotImplementedError, match="csv"):
+        UniversalDataModule(collate_fn=collator, args=port_sft.parse_args(
+            _argv(tmp_path, **{"--train_file": tmp_path / "a.json",
+                               "--raw_file_type": "csv"})))
 
 
 def test_accumulated_grad_step_averages_micro_batches(jax_run, tmp_path):
