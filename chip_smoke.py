@@ -131,7 +131,25 @@ Phases (each raises on failure, so any failure exits non-zero):
    by the classification module. K1-K4 launch 0 times (the family runs
    the dense attention). Free disk is checked first; step time,
    samples/s, tokens/s, MFU, peak memory and checkpoint GiB/s are
-   printed.
+   printed;
+13. Wenzhong: with 70 GiB of device memory free (checked first, never
+   a shallower model), ``finetune_wenzhong.main`` with the flags of the
+   reference's medicalQA shell on Wenzhong-GPT2-3.5B
+   (``configs/wenzhong_gpt2_3.5b.json``: all 30 blocks at width 3072,
+   fp32 weights made on the card from a seed, bf16 compute, per-block
+   checkpointing) for 8 steps of 1 x 512 over one repeated record and
+   one validation, steps 5-6 profiled: step time, tokens/s, MFU, peak
+   memory, losses (finite, falling); K1-K4 launch 0 times. Step 1 again
+   with ``fused_ce_chunks`` 8, through K2 under GPT-2's tied head (one
+   launch of each of its kernels), held to the materialised-logits
+   step (loss within 2e-2, grad norm within 5e-2); K2 against its plain
+   version at that shape (T 511, H 3072, V 50304) as in phase 3; the
+   bf16 forward held to fp32 compute on 1 x 128; 32 tokens of
+   ``yuyuan_qa.answer`` decoded over GPT-2's cache, each within
+   TF_MARGIN of one uncached forward's argmax; then at 2 blocks an
+   HF-named safetensors export answered by ``yuyuan_qa.main`` from a
+   piped stdin, and a fine-tune preempted by a real SIGTERM after step
+   2 and resumed, step 3 bitwise equal to the uninterrupted run's.
 
 Phase 3 also holds K2 (fused LM-head cross-entropy: forward, dx, dK) to
 its plain version at the long-context path's shape (T = 32767 tokens,
@@ -155,6 +173,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import re
@@ -2524,20 +2543,21 @@ def ce_top2_gap(xf, wf, chunk=4096):
     return torch.cat(gaps)
 
 
-def ce_case(gen):
-    """K2's operands at the long-context shape: x like final-norm hidden
-    states (unit rms), the head at the config's initializer range 0.02,
+def ce_case(gen, tokens=CE_TOKENS, hidden=CE_HIDDEN, vocab=CE_VOCAB):
+    """K2's operands at a path's shape (default: the long-context one):
+    x like final-norm hidden states (unit rms), the head at the
+    configs' initializer range 0.02,
     bf16; labels uniform over the vocab, about 3 % ignored (-100) and 10 %
     set to the fp32 argmax, so that n_correct carries signal."""
     import torch
     from fengshen_tpu_torch.ops.kernels.fused_ce import torch_ce_token_stats
-    x = torch.randn(CE_TOKENS, CE_HIDDEN, generator=gen,
+    x = torch.randn(tokens, hidden, generator=gen,
                     device="cuda").bfloat16()
-    w = (torch.randn(CE_HIDDEN, CE_VOCAB, generator=gen, device="cuda") *
+    w = (torch.randn(hidden, vocab, generator=gen, device="cuda") *
          0.02).bfloat16()
-    labels = torch.randint(0, CE_VOCAB, (CE_TOKENS,), generator=gen,
+    labels = torch.randint(0, vocab, (tokens,), generator=gen,
                            device="cuda", dtype=torch.int32)
-    u = torch.rand(CE_TOKENS, generator=gen, device="cuda")
+    u = torch.rand(tokens, generator=gen, device="cuda")
     amax = torch_ce_token_stats(x.float(), w.float(), labels)[2]
     labels = torch.where(u < 0.10, amax, labels)
     labels = torch.where(u > 0.97, -100, labels).int().contiguous()
@@ -2571,23 +2591,25 @@ def time_ce_backward(x, w, labels, lse, c_lse, c_gold):
             sum(e[1].elapsed_time(e[2]) for e in events))
 
 
-def phase_ce_kernels():
-    """K2 against its plain version at the long-context shape (T =
-    32767, H = 4096, V = 32000, bf16). The plain versions run in fp32 on
-    the same bf16 inputs (the kernels keep fp32 scores; the plain
-    version run in bf16 rounds them); the backward's take the kernel's
-    lse and the loss's cotangents. The check is also shown to reject
-    planted faults: the last vocab tile left out of the forward stats of
-    one token in 97 and of every token labelled in that tile, and one
-    128-token tile left out of dK. Times of
-    the kernels, the plain versions on the kernels' (bf16) inputs and
-    torch's materialised-logits CE (forward, and its autograd backward,
-    which gives dx and dK in one call)."""
+def phase_ce_kernels(tokens=CE_TOKENS, hidden=CE_HIDDEN, vocab=CE_VOCAB,
+                     label="fused_ce", seed=3):
+    """K2 against its plain version at a path's shape: by default the
+    long-context one (T = 32767, H = 4096, V = 32000, bf16); phase 13
+    gives Wenzhong's (T = 511, H = 3072, V = 50304). The plain versions
+    run in fp32 on the same bf16 inputs (the kernels keep fp32 scores;
+    the plain version run in bf16 rounds them); the backward's take the
+    kernel's lse and the loss's cotangents. The check is also shown to
+    reject planted faults: the last vocab tile left out of the forward
+    stats of one token in 97 and of every token labelled in that tile,
+    and one 128-token tile left out of dK. Times of the kernels, the
+    plain versions on the kernels' (bf16) inputs and torch's
+    materialised-logits CE (forward, and its autograd backward, which
+    gives dx and dK in one call)."""
     import torch
     import torch.nn.functional as F
     from fengshen_tpu_torch.ops.kernels import fused_ce as k2
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    x, w, labels = ce_case(gen)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, w, labels = ce_case(gen, tokens, hidden, vocab)
     valid = labels != -100
     n_valid = int(valid.sum())
     c_lse = valid.float() / n_valid
@@ -2653,9 +2675,9 @@ def phase_ce_kernels():
     # planted faults
     planted = {}
     # one token in 97, and every token whose label lies in the last tile
-    rows = torch.arange(CE_TOKENS, device="cuda")
-    rows = rows[(rows % 97 == 0) | (labels >= CE_VOCAB - CE_TILE)]
-    cut = wf[:, :CE_VOCAB - CE_TILE]
+    rows = torch.arange(tokens, device="cuda")
+    rows = rows[(rows % 97 == 0) | (labels >= vocab - CE_TILE)]
+    cut = wf[:, :vocab - CE_TILE]
     s_cut = xf[rows] @ cut
     lab = labels[rows].long()
     inside = (lab >= 0) & (lab < cut.shape[1])
@@ -2667,7 +2689,7 @@ def phase_ce_kernels():
         mutant[rows] = faults[name]
         planted[f"{name}_last_vocab_tile"] = \
             (mutant - want).abs().max().item() / CE_STAT_ATOL
-    t0 = CE_TOKENS // 2
+    t0 = tokens // 2
     tile = slice(t0, t0 + CE_TILE)
     d_tile = k2._plain_d(xf[tile], wf, labels[tile], lse[tile], c_lse[tile],
                          c_gold[tile])
@@ -2707,7 +2729,7 @@ def phase_ce_kernels():
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, (xl, wl),
                                                   retain_graph=True), 3)
     del out, xl, wl
-    bounds = ce_bounds(CE_TOKENS, CE_HIDDEN, CE_VOCAB, x.element_size())
+    bounds = ce_bounds(tokens, hidden, vocab, x.element_size())
     rows_out = {}
     for name, key, lib, err in (
             ("fused_ce_fwd", "fwd", lib_fwd, max(stat_err.values())),
@@ -2716,8 +2738,8 @@ def phase_ce_kernels():
         rows_out[name] = dict(ms=ms[name], plain_ms=plain_ms[name],
                               library_ms=lib, bound_ms=bounds[key][0],
                               bound_by=bounds[key][1], max_abs_err=err)
-    say("kernel", name="fused_ce", tokens=CE_TOKENS, hidden=CE_HIDDEN,
-        vocab=CE_VOCAB, dtype="bfloat16", bwd_chunk=k2.BWD_CHUNK,
+    say("kernel", name=label, tokens=tokens, hidden=hidden,
+        vocab=vocab, dtype="bfloat16", bwd_chunk=k2.BWD_CHUNK,
         stat_atol=CE_STAT_ATOL, rtol=K1_RTOL, l2_tol=K1_L2_TOL,
         argmax_margin=CE_ARGMAX_MARGIN, **report, times_ms=ms,
         plain_ms=plain_ms, library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
@@ -3836,6 +3858,51 @@ def logits_of(model, batch, dtype: str, mask=True):
         cfg.dtype = before
 
 
+def step_profile(trainer, profiled_steps) -> dict:
+    """Device time per step of the steps a fit traced with
+    ``--profile_steps`` (``trainer.profiler``): busy ms, idle share of
+    each step's wall time, GEMM ms, kernels, ms per kernel group
+    (CLS_PROFILE_GROUPS) and the top kernels."""
+    history = trainer.history
+    from torch.autograd import DeviceType
+    dev_us, n_kernels = {}, 0
+    for ev in trainer.profiler.events():
+        # a GPU user annotation (the optimizer's step range) spans
+        # kernels counted on their own
+        if ev.device_type == DeviceType.CUDA and not getattr(
+                ev, "is_user_annotation", False):
+            n_kernels += 1
+            dev_us[ev.name] = dev_us.get(ev.name, 0) + \
+                ev.time_range.elapsed_us()
+    n_prof = len(profiled_steps)
+    busy_ms = sum(dev_us.values()) / 1e3 / n_prof
+    gemm_ms = sum(us for name, us in dev_us.items() if any(
+        k in name for k in ("gemm", "nvjet", "cutlass", "sm90_xmma")))
+    groups, top = {g: 0.0 for g, _ in CLS_PROFILE_GROUPS}, {}
+    groups["other"] = 0.0
+    for name, us in dev_us.items():
+        group = next((g for g, keys in CLS_PROFILE_GROUPS
+                      if any(k in name for k in keys)), "other")
+        groups[group] += us / 1e3 / n_prof
+        top[name[:80]] = top.get(name[:80], 0.0) + us / 1e3 / n_prof
+    profile = {
+        "steps": sorted(profiled_steps),
+        "wall_ms_per_step": [round(e["step_time_s"] * 1e3, 3)
+                             for e in history if "step_time_s" in e and
+                             e["step"] in profiled_steps],
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": [round(1 - busy_ms / (e["step_time_s"] * 1e3),
+                                    4) for e in history
+                              if "step_time_s" in e and
+                              e["step"] in profiled_steps],
+        "gemm_ms_per_step": gemm_ms / 1e3 / n_prof,
+        "kernels_per_step": n_kernels / n_prof,
+        "group_ms_per_step": groups,
+        "top_kernels_ms_per_step": dict(sorted(
+            top.items(), key=lambda kv: -kv[1])[:8])}
+    return profile
+
+
 def phase_classification(workdir: Path, card):
     """``finetune_classification.main`` with the AFQMC shell's flags on
     Erlangshen-MegatronBert-1.3B at full width and all 24 layers (fp32
@@ -3915,42 +3982,7 @@ def phase_classification(workdir: Path, card):
     step_s = sorted(e["step_time_s"] for e in history
                     if "step_time_s" in e and e["step"] >= 2 and
                     e["step"] not in after_val)
-    from torch.autograd import DeviceType
-    dev_us, n_kernels = {}, 0
-    for ev in trainer.profiler.events():
-        # a GPU user annotation (the optimizer's step range) spans
-        # kernels counted on their own
-        if ev.device_type == DeviceType.CUDA and not getattr(
-                ev, "is_user_annotation", False):
-            n_kernels += 1
-            dev_us[ev.name] = dev_us.get(ev.name, 0) + \
-                ev.time_range.elapsed_us()
-    n_prof = len(profiled_steps)
-    busy_ms = sum(dev_us.values()) / 1e3 / n_prof
-    gemm_ms = sum(us for name, us in dev_us.items() if any(
-        k in name for k in ("gemm", "nvjet", "cutlass", "sm90_xmma")))
-    groups, top = {g: 0.0 for g, _ in CLS_PROFILE_GROUPS}, {}
-    groups["other"] = 0.0
-    for name, us in dev_us.items():
-        group = next((g for g, keys in CLS_PROFILE_GROUPS
-                      if any(k in name for k in keys)), "other")
-        groups[group] += us / 1e3 / n_prof
-        top[name[:80]] = top.get(name[:80], 0.0) + us / 1e3 / n_prof
-    profile = {
-        "steps": sorted(profiled_steps),
-        "wall_ms_per_step": [round(e["step_time_s"] * 1e3, 3)
-                             for e in history if "step_time_s" in e and
-                             e["step"] in profiled_steps],
-        "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": [round(1 - busy_ms / (e["step_time_s"] * 1e3),
-                                    4) for e in history
-                              if "step_time_s" in e and
-                              e["step"] in profiled_steps],
-        "gemm_ms_per_step": gemm_ms / 1e3 / n_prof,
-        "kernels_per_step": n_kernels / n_prof,
-        "group_ms_per_step": groups,
-        "top_kernels_ms_per_step": dict(sorted(
-            top.items(), key=lambda kv: -kv[1])[:8])}
+    profile = step_profile(trainer, profiled_steps)
     median_s = step_s[len(step_s) // 2]
     tokens = CLS_BATCH * CLS_LEN
     ckpt = workdir / "ckpt"
@@ -4108,6 +4140,355 @@ def phase_classification(workdir: Path, card):
         raise AssertionError("classification: " + "; ".join(failures))
 
 
+# -- phase 13 -----------------------------------------------------------
+
+#: Wenzhong phase (13): Wenzhong-GPT2-3.5B at its published geometry
+#: (all 30 blocks at width 3072), fine-tuned with the flags of the
+#: reference's medicalQA shell (finetune_GPT2_medicalQA.sh: batch 1 x
+#: 512, lr 1e-5, weight decay 0.01, beta2 0.95, clip 1.0) for WZ_STEPS
+#: steps over one repeated record and validated once
+WENZHONG_CONFIG = ROOT / "configs" / "wenzhong_gpt2_3.5b.json"
+WZ_STEPS, WZ_SEQ = 8, 512
+#: free device memory the phase needs: fp32 weights, grads and two
+#: AdamW moments of 3.56e9 parameters take 53.0 GiB, AdamW's foreach
+#: temporaries another 13.2 GiB at the update
+WZ_MIN_FREE_GIB = 70
+#: free disk under TMPDIR: a 2-layer checkpoint with its moments (4.6
+#: GB) and a 2-layer HF export (1.5 GB)
+WZ_MIN_DISK_GIB = 12
+#: the steps traced with torch.profiler (steps 5 and 6)
+WZ_PROFILE = (4, 6)
+#: fused_ce_chunks of the K2 run
+WZ_CE_CHUNKS = 8
+#: step 1 through K2 against step 1 with the materialised logits (same
+#: weights, batch and dropout masks): the logits path rounds the [511,
+#: 50304] scores to bf16 (an ulp of 2^-6 at |s| ~ 4) where K2 keeps fp32,
+#: which moves a 511-token mean of lse - gold by ~1e-3; the loss within
+#: 2e-2, the global grad norm within 5e-2 relative
+WZ_LOSS_ATOL = 2e-2
+WZ_GRAD_NORM_RTOL = 5e-2
+#: the 30-block forward in bf16 against fp32 compute on one 1 x 128 row:
+#: ||logits_bf16 - logits_fp32|| / ||logits_fp32||, as phase 12's bar
+WZ_BF16_RTOL = 1e-1
+WZ_BF16_ROW = 128
+#: greedy tokens decoded over GPT-2's cache through yuyuan_qa.answer
+WZ_NEW_TOKENS = 32
+#: the round trips' depth (full width), and its fine-tune's steps
+WZ_CKPT_LAYERS, WZ_RESUME_STEPS = 2, 3
+
+
+def qa_record(rng, vocab: int, n_question: int = 100,
+              n_answer: int = 440) -> dict:
+    """A medicalQA-shaped record for the IdTokenizer (ids as text): the
+    question, ``"Question:"`` and ``" Answer:"`` encode to 117 tokens,
+    so the answer fills the row of WZ_SEQ and is cut there."""
+    def ids(k):
+        return " ".join(map(str, rng.randint(3, vocab, k)))
+    return {"question": ids(n_question), "answer": ids(n_answer)}
+
+
+def wenzhong_argv(root: Path, model_dir: Path, train: Path, steps: int,
+                  extra=()) -> list:
+    """The medicalQA shell's flags (finetune_GPT2_medicalQA.sh), cut to
+    ``steps`` steps."""
+    return [str(x) for x in (
+        "--model_path", model_dir, "--train_file", train,
+        "--default_root_dir", root, "--train_batchsize", 1,
+        "--max_seq_length", WZ_SEQ, "--learning_rate", 1e-5,
+        "--weight_decay", 0.01, "--adam_beta2", 0.95,
+        "--gradient_clip_val", 1.0, "--precision", "bf16",
+        "--max_steps", steps, "--log_every_n_steps", 1, "--seed", 0,
+        "--device", "cuda", *extra)]
+
+
+def config_dir(path: Path, raw: dict) -> Path:
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(raw))
+    return path
+
+
+def phase_wenzhong(workdir: Path, card):
+    """Wenzhong-GPT2-3.5B at full width and all 30 blocks (fp32 weights
+    made on the card from a seed, bf16 compute, per-block
+    checkpointing): ``finetune_wenzhong.main`` with the medicalQA
+    shell's flags for WZ_STEPS steps of 1 x 512 over one repeated
+    record and one validation (steps 5-6 profiled); the same step once
+    more with ``fused_ce_chunks`` 8, through K2 under the tied head,
+    held to the materialised-logits step; K2 against its plain version
+    at that shape; the bf16 forward held to fp32 compute; 32 tokens of
+    ``yuyuan_qa.answer`` decoded over GPT-2's cache, held to one uncached
+    forward; then at 2 blocks an HF-named export answered by
+    ``yuyuan_qa.main`` from a piped stdin, and a fine-tune preempted by
+    a real SIGTERM after step 2 (the Trainer saves) and resumed, whose
+    step 3 equals the uninterrupted run's bitwise.
+    Only the K2 run launches kernels (K2's three, once each). Returns
+    ``(K2 launches, K2 rows at Wenzhong's shape)``."""
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from fengshen_tpu_torch.examples.fastdemo import yuyuan_qa
+    from fengshen_tpu_torch.examples.wenzhong_qa import (
+        finetune_wenzhong as fw)
+    from fengshen_tpu_torch.models.gpt2 import (GPT2Config,
+                                                GPT2LMHeadModel, convert)
+    from fengshen_tpu_torch.ops.kernels import reset_launch_counts
+    from fengshen_tpu_torch.pipelines.text_generation import IdTokenizer
+    from fengshen_tpu_torch.resilience import FaultPlan
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    if free_gib < WZ_MIN_FREE_GIB:
+        raise AssertionError(f"wenzhong: {free_gib:.2f} GiB free on the "
+                             f"card, the phase needs {WZ_MIN_FREE_GIB}")
+    disk_gib = shutil.disk_usage(workdir).free / 2**30
+    if disk_gib < WZ_MIN_DISK_GIB:
+        raise AssertionError(f"wenzhong: {disk_gib:.1f} GiB free under "
+                             f"{workdir}, the phase needs "
+                             f"{WZ_MIN_DISK_GIB}")
+    t_phase = time.perf_counter()
+    failures = []
+    raw = json.loads(WENZHONG_CONFIG.read_text())
+    vocab = raw["vocab_size"]
+    model_dir = config_dir(workdir / "wenzhong", raw)
+    rng = np.random.RandomState(13)
+    train = write_jsonl(workdir / "wz_train.jsonl",
+                        [qa_record(rng, vocab)] * WZ_STEPS)
+    val = write_jsonl(workdir / "wz_val.jsonl", [qa_record(rng, vocab)])
+    tok = IdTokenizer()
+
+    # 1. the medicalQA shell's fine-tune at full depth
+    argv = wenzhong_argv(workdir / "wz_runs", model_dir, train, WZ_STEPS, (
+        "--val_file", val, "--val_batchsize", 1, "--profile_steps",
+        ",".join(map(str, WZ_PROFILE)),
+        *no_checkpoints(workdir / "wz_ckpt")))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = fw.main(argv, tokenizer=tok)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = kernel_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    history = trainer.history
+    steps = [e for e in history if "loss" in e]
+    vals = [e["val_loss"] for e in history if "val_loss" in e]
+    losses = [e["loss"] for e in steps]
+    n_params = next(e["n_params"] for e in history
+                    if e.get("event") == "fit_start")
+    flops_per_token = steps[-1]["flops_per_token"]
+    profiled = set(range(WZ_PROFILE[0] + 1, WZ_PROFILE[1] + 1))
+    # steady steps: not step 1, not the traced ones, and not the one
+    # after them, which stops the trace and writes it out
+    step_s = sorted(e["step_time_s"] for e in steps
+                    if e["step"] >= 2 and e["step"] not in profiled and
+                    e["step"] != WZ_PROFILE[1] + 1)
+    median_s = step_s[len(step_s) // 2]
+    profile = step_profile(trainer, profiled)
+    ce_step1 = steps[0]
+    if len(steps) != WZ_STEPS or not np.isfinite(losses).all() or \
+            not losses[-1] < losses[0]:
+        failures.append(f"losses {losses} (finite, falling on the "
+                        f"repeated record)")
+    if len(vals) != 1 or not np.isfinite(vals).all():
+        failures.append(f"validation losses {vals}")
+    if any(fit_launches.values()):
+        failures.append(f"kernel launches in the CE fit: {fit_launches}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. step 1 again with fused_ce_chunks 8: K2 under the tied head
+    k2_dir = config_dir(workdir / "wenzhong_k2",
+                        dict(raw, fused_ce_chunks=WZ_CE_CHUNKS))
+    reset_launch_counts()
+    trainer = fw.main(wenzhong_argv(
+        workdir / "wz_k2_runs", k2_dir, train, 1,
+        no_checkpoints(workdir / "wz_ckpt")), tokenizer=tok)
+    torch.cuda.synchronize()
+    all_launches = kernel_launches()
+    k2_launches = {n: all_launches.pop(n) for n in K2_NAMES}
+    k2_step1 = next(e for e in trainer.history if "loss" in e)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_gap = abs(k2_step1["loss"] - ce_step1["loss"])
+    norm_rel = abs(k2_step1["grad_norm"] - ce_step1["grad_norm"]) / \
+        abs(ce_step1["grad_norm"])
+    chunks = -(-(WZ_SEQ - 1) // 1024)
+    if k2_launches != {"fused_ce_fwd": 1, "fused_ce_bwd_dx": chunks,
+                       "fused_ce_bwd_dk": chunks} or any(
+            all_launches.values()):
+        failures.append(f"K2 run launches {k2_launches}, others "
+                        f"{all_launches}")
+    if loss_gap > WZ_LOSS_ATOL or norm_rel > WZ_GRAD_NORM_RTOL:
+        failures.append(f"step 1 through K2 (loss {k2_step1['loss']}, "
+                        f"grad norm {k2_step1['grad_norm']}) against the "
+                        f"logits (loss {ce_step1['loss']}, grad norm "
+                        f"{ce_step1['grad_norm']})")
+
+    # 3. K2 against its plain version at this path's shape
+    k2_rows = phase_ce_kernels(WZ_SEQ - 1, raw["n_embd"], vocab,
+                               label="fused_ce_wenzhong", seed=13)
+
+    # 4. numerics at depth 30: bf16 against fp32 compute, and greedy
+    # decode over the cache against one uncached forward
+    cfg = GPT2Config.from_pretrained(str(model_dir))
+    model = GPT2LMHeadModel(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    row = torch.as_tensor(rng.randint(3, vocab, (1, WZ_BF16_ROW)),
+                          device="cuda")
+    reset_launch_counts()
+    with torch.no_grad():
+        got = model(row).float()
+        cfg.dtype = "float32"
+        want = model(row).float()
+        cfg.dtype = "bfloat16"
+    bf16_rel = ((got - want).norm() / want.norm()).item()
+    del got, want
+    if bf16_rel > WZ_BF16_RTOL:
+        failures.append(f"bf16 vs fp32 logits rel L2 {bf16_rel} (limit "
+                        f"{WZ_BF16_RTOL})")
+    question = " ".join(map(str, rng.randint(3, vocab, 40)))
+    prompt = tok.encode(f"Question:{question} Answer:",
+                        add_special_tokens=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = yuyuan_qa.answer(model, tok, question,
+                            max_new_tokens=WZ_NEW_TOKENS)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    tokens = [int(t) for t in text.split()]
+    with torch.no_grad():
+        seq = torch.tensor([prompt + tokens[:-1]], device="cuda")
+        pred = model(seq).float()[0, len(prompt) - 1:]
+    chosen = torch.tensor(tokens, device="cuda")
+    worst_gap = (pred.max(-1).values -
+                 pred.gather(1, chosen[:, None])[:, 0]).max().item()
+    argmax = pred.argmax(-1).tolist()
+    first = next((i for i, (a, b) in enumerate(zip(argmax, tokens))
+                  if a != b), None)
+    first_gap = None
+    if first is not None:
+        top = pred[first].topk(2).values
+        first_gap = (top[0] - top[1]).item()
+    decode_launches = kernel_launches()
+    if len(tokens) != WZ_NEW_TOKENS or worst_gap > TF_MARGIN or \
+            (first is not None and first_gap > TF_MARGIN) or \
+            any(decode_launches.values()):
+        failures.append(f"cached decode {len(tokens)} tokens, first "
+                        f"disagreement {first} (top-2 gap {first_gap}), "
+                        f"worst gap {worst_gap} (margin {TF_MARGIN}), "
+                        f"launches {decode_launches}")
+    del model, pred, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. round trips at 2 blocks, full width: an HF-named export that
+    # yuyuan_qa.main serves from a piped stdin, and a resumed fine-tune
+    raw2 = dict(raw, n_layer=WZ_CKPT_LAYERS)
+    cfg2 = GPT2Config(**{k: v for k, v in raw2.items()
+                         if not k.startswith("_") and k != "model_type"})
+    src = GPT2LMHeadModel(cfg2, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(4))
+    hf_dir = config_dir(workdir / "wz_hf2", raw2)
+    t0 = time.perf_counter()
+    exported = write_safetensors(
+        hf_dir / "model.safetensors",
+        convert.params_to_torch_state(src.state_dict(), cfg2))
+    export_s = time.perf_counter() - t0
+    want_answer = yuyuan_qa.answer(src, tok, question, max_new_tokens=16)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(sys, "stdin", io.StringIO(question + "\n\n")), \
+            contextlib.redirect_stdout(out):
+        yuyuan_qa.main(["--model_path", str(hf_dir), "--max_new_tokens",
+                        "16", "--device", "cuda"], tokenizer=tok)
+    demo_s = time.perf_counter() - t0
+    demo_lines = out.getvalue().splitlines()
+    if demo_lines[1:] != [want_answer]:
+        failures.append(f"yuyuan_qa.main answered {demo_lines[1:]}, the "
+                        f"exported model {want_answer!r}")
+    del src
+    shutil.rmtree(hf_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_dir = config_dir(workdir / "wenzhong2", raw2)
+    ck = workdir / "wz_ckpt2"
+    ck_flags = ("--save_ckpt_path", ck, "--load_ckpt_path", ck,
+                "--every_n_train_steps", 10 ** 9)
+
+    def fit(name, flags, install=None):
+        argv = wenzhong_argv(workdir / name, small_dir, train,
+                             WZ_RESUME_STEPS, flags)
+        with fit_hook(install or (lambda trainer, module: None)):
+            trainer = fw.main(argv, tokenizer=tok)
+        got = {e["step"]: e["loss"] for e in trainer.history
+               if "loss" in e}
+        stats = next(c for c in trainer.callbacks
+                     if hasattr(c, "stats")).stats
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return got, dict(stats)
+
+    reset_launch_counts()
+    whole, _ = fit("wz_whole", no_checkpoints(workdir / "wz_none"))
+    # a real SIGTERM after step 2: the Trainer saves, returns, resumes
+    first_run, saved = fit("wz_first", ck_flags, lambda trainer, module:
+                           FaultPlan(sigterm_at_step=2).install(trainer))
+    resumed, restored = fit("wz_resumed", ck_flags)
+    round_launches = kernel_launches()
+    if first_run != {s: whole[s] for s in (1, 2)} or \
+            resumed != {3: whole[3]} or saved["saves"] != 1 or \
+            restored["restores"] != 1:
+        failures.append(f"resume: uninterrupted {whole}, saved {first_run}"
+                        f", resumed {resumed}")
+    if any(round_launches.values()):
+        failures.append(f"kernel launches at 2 blocks: {round_launches}")
+    shutil.rmtree(ck)
+    tokens_per_s = WZ_SEQ / median_s
+    say("wenzhong", card=card, config=WENZHONG_CONFIG.name,
+        n_params=n_params, free_gib_at_start=free_gib, steps=WZ_STEPS,
+        seq=WZ_SEQ, fit_s=fit_s, step1_s=ce_step1["step_time_s"],
+        step_time_s_median=median_s,
+        step_time_s_range=[step_s[0], step_s[-1]],
+        step_s=[e["step_time_s"] for e in steps],
+        tokens_per_s=tokens_per_s, flops_per_token=flops_per_token,
+        mfu=flops_per_token * tokens_per_s / BF16_FLOPS,
+        max_memory_allocated_gib=peak_gib, losses=losses,
+        grad_norms=[e["grad_norm"] for e in steps], val_losses=vals,
+        profile=profile, fit_launches=fit_launches,
+        k2_launches=k2_launches, k2_step1_loss=k2_step1["loss"],
+        ce_step1_loss=ce_step1["loss"], loss_gap=loss_gap,
+        loss_atol=WZ_LOSS_ATOL, k2_step1_grad_norm=k2_step1["grad_norm"],
+        ce_step1_grad_norm=ce_step1["grad_norm"], grad_norm_rel=norm_rel,
+        grad_norm_rtol=WZ_GRAD_NORM_RTOL, k2_step1_s=k2_step1[
+            "step_time_s"], bf16_vs_fp32_rel_l2=bf16_rel,
+        bf16_rtol=WZ_BF16_RTOL, decode_tokens=len(tokens),
+        decode_ms_per_token=decode_s / max(len(tokens), 1) * 1e3,
+        decode_exact_argmax=sum(a == b for a, b in zip(argmax, tokens)),
+        decode_first_disagreement=first, decode_first_gap=first_gap,
+        decode_worst_gap=worst_gap, tf_margin=TF_MARGIN,
+        export_gib=exported / 2**30,
+        export_write_gib_per_s=exported / 2**30 / max(export_s, 1e-9),
+        demo_s=demo_s, demo_answer_equal=demo_lines[1:] == [want_answer],
+        resume_losses={"whole": whole, "first": first_run,
+                       "resumed": resumed},
+        ckpt_gib_written=saved["bytes_written"] / 2**30,
+        ckpt_write_gib_per_s=saved["bytes_written"] / 2**30 /
+        max(saved["save_s"], 1e-9),
+        ckpt_gib_read=restored["bytes_read"] / 2**30,
+        ckpt_read_gib_per_s=restored["bytes_read"] / 2**30 /
+        max(restored["restore_s"], 1e-9),
+        phase_s=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("wenzhong: " + "; ".join(failures))
+    return k2_launches, k2_rows
+
+
 def main() -> int:
     try:
         import torch
@@ -4179,6 +4560,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_classification(Path(tmp), card)
         mark("12_classification")
+    with tempfile.TemporaryDirectory() as tmp:
+        wz_launches, wz_rows = phase_wenzhong(Path(tmp), card)
+        mark("13_wenzhong")
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     main_row = rows[("paged", 1)]
@@ -4229,9 +4613,22 @@ def main() -> int:
                                  "long_context": long_launches[name]}})
     for name in K2_NAMES:
         e, r = get_entry(name), k2_rows[name]
+        by_path = {"long_context": long_launches[name],
+                   "wenzhong_3.5b": wz_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": e.source,
             "replaces": e.replaces, "launches": long_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "variant": "tensor_core", "launches_by_path": by_path})
+    # the same kernels at Wenzhong's shape (T 511, H 3072, V 50304):
+    # launches from phase 13's K2 run, times from its K2 check
+    for name in K2_NAMES:
+        e, r = get_entry(name), wz_rows[name]
+        kernels.append({
+            "name": f"{name}_wenzhong", "route": "cuda", "source": e.source,
+            "replaces": e.replaces, "launches": wz_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

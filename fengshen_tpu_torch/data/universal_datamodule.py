@@ -87,6 +87,13 @@ class DataLoader:
                 raise
             yield batch
 
+    def set_epoch(self, epoch: int) -> None:
+        """The Trainer's per-epoch call, forwarded to a sampler that
+        reshuffles per epoch (``_SimpleBatchSampler``); the resumable
+        samplers derive their epoch from ``consumed_samples``."""
+        if hasattr(self.sampler, "set_epoch"):
+            self.sampler.set_epoch(epoch)
+
     def skip_next(self) -> None:
         """``ResilientLoader``'s skip protocol: advance the sampler past
         the next (poison) batch without fetching it."""

@@ -28,8 +28,6 @@ the compute dtype, as ``configuration_llama.py`` sets by default.
 
 from __future__ import annotations
 
-import glob
-import os
 from typing import Any, Iterator, Mapping, Optional
 
 import numpy as np
@@ -38,8 +36,9 @@ import torch
 from fengshen_tpu_torch.device import resolve_device
 from fengshen_tpu_torch.models.llama.configuration_llama import LlamaConfig
 from fengshen_tpu_torch.utils.convert_common import (  # noqa: F401
-    SAFETENSORS_DTYPES, check_safetensors_complete, iter_safetensors,
-    read_safetensors_header, write_safetensors, write_safetensors_stream)
+    SAFETENSORS_DTYPES, check_safetensors_complete, checkpoint_files,
+    iter_safetensors, read_safetensors_header, write_safetensors,
+    write_safetensors_stream)
 
 
 def _tensor(x: Any) -> torch.Tensor:
@@ -182,22 +181,6 @@ def _checked_keys(keys, config: LlamaConfig) -> list:
         raise KeyError(f"checkpoint has {len(extra)} unexpected "
                        f"tensor(s): {extra[:8]}")
     return want
-
-
-def checkpoint_files(path: str) -> tuple:
-    """``(format, files)`` of a checkpoint directory, as the reference
-    picks them (:114-124): every ``*.safetensors`` if there is one,
-    sorted, else every ``pytorch_model*.bin``, sorted. A directory with
-    neither raises ``FileNotFoundError`` naming what it looked for."""
-    files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
-    if files:
-        return "safetensors", files
-    files = sorted(glob.glob(os.path.join(path, "pytorch_model*.bin")))
-    if files:
-        return "bin", files
-    raise FileNotFoundError(
-        f"no weights in {path!r}: looked for *.safetensors and "
-        "pytorch_model*.bin")
 
 
 def _file_keys(fmt: str, path: str) -> list:

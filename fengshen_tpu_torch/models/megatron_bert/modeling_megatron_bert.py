@@ -39,8 +39,8 @@ from fengshen_tpu_torch.models.megatron_bert.configuration_megatron_bert \
     import MegatronBertConfig
 from fengshen_tpu_torch.ops.activations import get_activation
 from fengshen_tpu_torch.ops.attention import dot_product_attention
-from fengshen_tpu_torch.ops.dropout import dropout, site_generator, \
-    site_seeds
+from fengshen_tpu_torch.ops.dropout import dropout, forward_seeds, \
+    site_generator, site_seeds
 from fengshen_tpu_torch.ops.embedding import VocabParallelEmbed
 from fengshen_tpu_torch.ops.norms import LayerNorm
 
@@ -56,15 +56,8 @@ def encoder_seeds(config, n_layers: int, deterministic: bool,
     drops out without ``dropout_rng`` raises, as flax does without a
     ``"dropout"`` rng."""
     rates = (config.hidden_dropout_prob, config.attention_probs_dropout_prob)
-    if deterministic or not any(rates):
-        return None, [None] * n_layers
-    if dropout_rng is None:
-        raise ValueError("a forward with dropout (deterministic=False) "
-                         "needs dropout_rng, a torch.Generator")
-    seeds = site_seeds(dropout_rng, 1 + LAYER_SITES * n_layers)
-    return seeds[0], [tuple(seeds[1 + LAYER_SITES * i:
-                                  1 + LAYER_SITES * (i + 1)])
-                      for i in range(n_layers)]
+    return forward_seeds(dropout_rng, n_layers, LAYER_SITES,
+                         not deterministic and any(rates))
 
 
 def head_seed(config, deterministic: bool,

@@ -46,6 +46,23 @@ def site_seeds(generator: Optional[torch.Generator], n: int) -> list:
     return torch.randint(0, 2 ** 62, (n,), generator=generator).tolist()
 
 
+def forward_seeds(dropout_rng: Optional[torch.Generator], n_layers: int,
+                  sites: int, active: bool) -> tuple:
+    """``(embedding seed, [a tuple of ``sites`` seeds per layer])`` for
+    one forward of a layer stack, drawn in that order from
+    ``dropout_rng``; Nones when not ``active`` (deterministic, or every
+    rate 0). An active forward without a generator raises, as flax does
+    without a ``"dropout"`` rng."""
+    if not active:
+        return None, [None] * n_layers
+    if dropout_rng is None:
+        raise ValueError("a forward with dropout (deterministic=False) "
+                         "needs dropout_rng, a torch.Generator")
+    seeds = site_seeds(dropout_rng, 1 + sites * n_layers)
+    return seeds[0], [tuple(seeds[1 + sites * i:1 + sites * (i + 1)])
+                      for i in range(n_layers)]
+
+
 def site_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
     """A generator on ``device`` seeded with ``seed`` (None for None)."""
     if seed is None:

@@ -36,7 +36,8 @@ class IdTokenizer:
         return [int(t) if t.isdecimal() else ord(t)
                 for t in re.findall(r"\d+|\S", text)]
 
-    def decode(self, ids) -> str:
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        del skip_special_tokens  # no special tokens to skip
         return " ".join(str(int(t)) for t in ids)
 
 

@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Optional
 
 import torch
@@ -26,6 +27,7 @@ class CausalLMModule(TrainModule):
         self.model = model
         self.config = config
         self.pretrained_state: Optional[dict] = None
+        self._takes_dropout: Optional[bool] = None
 
     def init_params(self, generator: torch.Generator) -> torch.nn.Module:
         """Weights made from ``generator`` on the model's device, or the
@@ -50,16 +52,33 @@ class CausalLMModule(TrainModule):
         return "replicated" if tensor <= 1 else "vocab_parallel"
 
     def _lm_head_kernel(self) -> torch.Tensor:
-        """The ``[H, V]`` head for the fused path (:60): the tied
-        embedding or the ``lm_head`` weight, transposed."""
+        """The ``[H, V]`` head for the fused path (:60): the model's own
+        ``lm_head_kernel()`` when it publishes one (GPT-2's ``wte``-tied
+        head), else LLaMA's tied embedding or ``lm_head`` weight,
+        transposed."""
         model = self.model
+        hook = getattr(model, "lm_head_kernel", None)
+        if hook is not None:
+            return hook()
         if getattr(self.config, "tie_word_embeddings", False):
             return model.model.embed_tokens.weight.T
         return model.lm_head.weight.T
 
+    def _dropout_kwargs(self) -> dict:
+        """The model's dropout arguments when its forward takes them
+        (GPT-2): the step's generator in a training step; without one
+        (validation, prediction) the forward is deterministic."""
+        if self._takes_dropout is None:
+            self._takes_dropout = "dropout_rng" in inspect.signature(
+                self.model.forward).parameters
+        if not self._takes_dropout:
+            return {}
+        gen = self.dropout_generator
+        return {"deterministic": gen is None, "dropout_rng": gen}
+
     def training_loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         labels = batch.get("labels", batch["input_ids"])
-        extra = {}
+        extra = self._dropout_kwargs()
         if "position_ids" in batch:      # packed rows restart positions
             extra["position_ids"] = batch["position_ids"]
         mode = self._fused_ce_mode()
@@ -95,12 +114,15 @@ class CausalLMModule(TrainModule):
     def flops_per_token(self) -> Optional[float]:
         """Forward plus backward matmul FLOPs per token, 6 x the
         parameters in the matrix products (the head included, the
-        embedding table excluded), plus attention's 12 x layers x hidden
-        x sequence (counted at the full sequence: ``--max_seq_length``,
-        else the config's ``max_position_embeddings``)."""
+        embedding and position tables excluded: LLaMA's
+        ``embed_tokens``, GPT-2's ``wpe``; GPT-2's ``wte`` is its head),
+        plus attention's 12 x layers x hidden x sequence (counted at the
+        full sequence: ``--max_seq_length``, else the config's
+        ``max_position_embeddings``)."""
         cfg = self.config
         n = sum(p.numel() for name, p in self.model.named_parameters()
-                if p.dim() >= 2 and "embed_tokens" not in name)
+                if p.dim() >= 2 and "embed_tokens" not in name and
+                ".wpe." not in name)
         seq = getattr(self.args, "max_seq_length", 0) or \
             getattr(cfg, "max_position_embeddings", 0) or 0
         return 6.0 * n + 12.0 * cfg.num_hidden_layers * \

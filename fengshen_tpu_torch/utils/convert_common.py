@@ -5,6 +5,8 @@ counterpart of ``fengshen_tpu/utils/convert_common.py``.
   package (the card's machine has none): an 8-byte little-endian header
   length, a JSON header of ``dtype``, ``shape`` and ``data_offsets``,
   then the raw bytes. Files are read and written one tensor at a time.
+- :func:`checkpoint_files`: the weight files of an HF checkpoint
+  directory, as the reference's HF loaders pick them.
 - :func:`load_torch_checkpoint` (:328): the state dict of a checkpoint
   directory in the file names the reference publishes under
   (``pytorch_model.bin``, a Lightning ``model.ckpt`` / ``last.ckpt``
@@ -98,6 +100,24 @@ def flax_to_state(tree: Mapping, prefix: str = "",
             t = t.T.contiguous()
         out[prefix + _LEAF_NAMES.get(key, key)] = t
     return out
+
+
+def checkpoint_files(path: str) -> tuple:
+    """``(format, files)`` of a checkpoint directory, as the reference's
+    HF loaders pick them (``models/llama/convert.py:114-124``,
+    ``models/gpt2/convert.py:64-73``): every ``*.safetensors`` if there
+    is one, sorted, else every ``pytorch_model*.bin``, sorted. A
+    directory with neither raises ``FileNotFoundError`` naming what it
+    looked for."""
+    files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+    if files:
+        return "safetensors", files
+    files = sorted(glob.glob(os.path.join(path, "pytorch_model*.bin")))
+    if files:
+        return "bin", files
+    raise FileNotFoundError(
+        f"no weights in {path!r}: looked for *.safetensors and "
+        "pytorch_model*.bin")
 
 
 def load_torch_checkpoint(ckpt_dir: str) -> Mapping[str, Any]:

@@ -22,7 +22,8 @@ its port, the weights carried by ``params_from_jax``:
   ``predict_step`` (dropout off); ``save_test``'s file byte for byte;
   LoRA adapting the same projections; a CPU ``main()`` that fits,
   checkpoints on ``val_acc`` and predicts, and whose ``--do_predict_only``
-  rerun writes the same file; the reference shells' flags; the
+  rerun writes the same file; the train loader reshuffling per epoch as
+  the JAX sampler given the epoch; the reference shells' flags; the
   refusals; and the dropout generator repeating across a resume.
 
 Tolerances: fp32 within 1e-5 (the two differ by reduction order, ~1e-7
@@ -724,6 +725,57 @@ def test_main_fits_checkpoints_on_val_acc_and_predicts(tmp_path):
     again = fc.main(argv + ["--do_predict_only"], tokenizer=tok)
     assert again.global_step == ranked[0]
     assert (tmp_path / "predict.json.0").read_text() == first
+
+
+def _jax_epoch_order(total, batch, epoch, seed=42):
+    from fengshen_tpu.data.universal_datamodule import _SimpleBatchSampler
+    sampler = _SimpleBatchSampler(total, batch, 0, 1, True, seed=seed,
+                                  drop_last=True)
+    sampler.set_epoch(epoch)
+    return [[int(i) for i in b] for b in sampler]
+
+
+@pytest.mark.parametrize("epoch", [0, 1, 2])
+def test_train_loader_reshuffles_as_the_jax_sampler_given_the_epoch(
+        tmp_path, epoch):
+    """``set_epoch`` on the train loader (what the Trainer calls) reaches
+    its sampler: the loader's batches are the rows of the JAX
+    ``_SimpleBatchSampler`` given that epoch, in its order."""
+    tok, vocab = _tokenizer(tmp_path)
+    args = fc.build_parser().parse_args(
+        ["--data_dir", str(_task_dir(tmp_path)), "--pretrained_model_path",
+         str(_model_dir(tmp_path, vocab)), *RUN_FLAGS[:8]])
+    dm = fc.TaskDataModel(args, tok)
+    loader = dm.train_dataloader()
+    loader.set_epoch(epoch)
+    want = _jax_epoch_order(len(dm.train_data), 4, epoch)
+    got = [b["id"].tolist() for b in loader]
+    assert got == want
+    assert got != _jax_epoch_order(len(dm.train_data), 4, epoch + 1)
+
+
+def test_two_epoch_fit_sees_two_orders(tmp_path, monkeypatch):
+    """A two-epoch CPU ``main()`` walks epoch 0's order, then epoch 1's
+    (each the JAX sampler's given the epoch), not the same one twice."""
+    tok, vocab = _tokenizer(tmp_path)
+    seen = []
+    real = fc.ClassificationModule.training_loss
+
+    def recording(self, batch):
+        seen.append(batch["id"].tolist())
+        return real(self, batch)
+
+    monkeypatch.setattr(fc.ClassificationModule, "training_loss",
+                        recording)
+    fc.main(["--pretrained_model_path", str(_model_dir(tmp_path, vocab)),
+             "--model_type", "huggingface-auto", "--data_dir",
+             str(_task_dir(tmp_path)), *RUN_FLAGS, "--max_epochs", "2",
+             "--dirpath", str(tmp_path / "ckpt"),
+             "--every_n_train_steps", str(10 ** 9), "--output_save_path",
+             str(tmp_path / "predict.json"), "--default_root_dir",
+             str(tmp_path / "runs")], tokenizer=tok)
+    assert seen == _jax_epoch_order(12, 4, 0) + _jax_epoch_order(12, 4, 1)
+    assert seen[:3] != seen[3:]
 
 
 def test_refusals_name_their_queue_item(tmp_path):

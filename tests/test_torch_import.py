@@ -115,6 +115,17 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):
                              "huggingface-megatron_bert"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MegatronBertModel(MegatronBertConfig.small_test_config())
+    from fengshen_tpu_torch.examples.fastdemo.yuyuan_qa import \
+        main as yuyuan_main
+    from fengshen_tpu_torch.examples.wenzhong_qa.finetune_wenzhong import \
+        main as wenzhong_main
+    from fengshen_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPT2LMHeadModel(GPT2Config.small_test_config())
+    GPT2Config.small_test_config().save_pretrained(str(tmp_path / "gpt2"))
+    for entry in (wenzhong_main, yuyuan_main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(["--model_path", str(tmp_path / "gpt2")])
     # a model asked for on the CPU runs there
     out = generate(model, [[5, 6]], max_new_tokens=2, device="cpu")
     assert out.shape == (1, 4)
