@@ -149,7 +149,25 @@ Phases (each raises on failure, so any failure exits non-zero):
    TF_MARGIN of one uncached forward's argmax; then at 2 blocks an
    HF-named safetensors export answered by ``yuyuan_qa.main`` from a
    piped stdin, and a fine-tune preempted by a real SIGTERM after step
-   2 and resumed, step 3 bitwise equal to the uninterrupted run's.
+   2 and resumed, step 3 bitwise equal to the uninterrupted run's;
+14. Randeng summarization: ``seq2seq_summary.main`` with the flags of
+   the reference's 784M summary shell on Randeng-T5-784M
+   (``configs/randeng_t5_784m.json``: all 24 + 24 layers at full width,
+   784,108,544 parameters checked first, fp32 weights made on the card
+   from a seed, bf16 compute) over LCSTS-shaped records made from a seed
+   and the phase's own character tokenizer: 20 steps of 64 x (128 +
+   64), validation every 10 steps with checkpoints kept by
+   ``val_loss``, then greedy ``predict.json`` over 128 test records with
+   ROUGE; ``--do_eval_only`` writes a beam-4 file and the greedy file
+   again, byte for byte; the bf16 forward held to fp32 compute (the
+   encoder padding mask dropped must fail that bar); 8 rows of cached
+   greedy decode held to one uncached forward, their beam-4 outputs
+   re-scored no worse than greedy; a 2-layer HF export read back
+   through ``load_hf_pretrained`` with bitwise logits. K1-K4 launch 0
+   times. Free disk is checked first; step time, tokens/s (encoder and
+   decoder tokens), MFU, peak memory, checkpoint GiB/s and decode ms per
+   step (greedy and beam 4, batch 64, with a profiled greedy window)
+   are printed.
 
 Phase 3 also holds K2 (fused LM-head cross-entropy: forward, dx, dK) to
 its plain version at the long-context path's shape (T = 32767 tokens,
@@ -4489,6 +4507,468 @@ def phase_wenzhong(workdir: Path, card):
     return k2_launches, k2_rows
 
 
+# -- phase 14 -----------------------------------------------------------
+
+#: Randeng summarization phase (14): Randeng-T5-784M at its published
+#: geometry (24 + 24 layers at width 1024, untied 32596-token head),
+#: fine-tuned with the flags of the reference's 784M summary shell
+#: (randeng_t5_784M_summary.sh: batch 64, encoder 128, decoder 64 tokens,
+#: lr 1e-4, weight decay 1e-2, val_loss checkpoints, bf16) on LCSTS-shaped
+#: records made from a seed: RD_TRAIN distinct records cycled over
+#: RD_STEPS steps (the shell's one epoch of LCSTS is ~37k steps),
+#: validation every RD_VAL_EVERY steps, the test split decoded
+RANDENG_CONFIG = ROOT / "configs" / "randeng_t5_784m.json"
+RD_PARAMS = 784_108_544
+RD_TRAIN, RD_VAL, RD_TEST = 64, 64, 128
+RD_STEPS, RD_VAL_EVERY, RD_BATCH, RD_ENC, RD_DEC = 20, 10, 64, 128, 64
+#: LCSTS-shaped records: a text of 80-128 characters and a summary of
+#: 10-30 characters taken from it, over RD_CHARS CJK characters
+RD_CHARS, RD_TEXT_LEN, RD_SUMMARY_LEN = 3000, (80, 129), (10, 31)
+#: free disk under TMPDIR: two val_loss checkpoints of fp32 weights and
+#: both AdamW moments (9.4 GB each) and a 2-layer HF export (0.4 GB)
+RD_MIN_DISK_GIB = 24
+#: the steps traced with torch.profiler (steps 5 and 6)
+RD_PROFILE = (4, 6)
+#: the 48-layer forward in bf16 against fp32 compute on one batch:
+#: ||logits_bf16 - logits_fp32|| / ||logits_fp32|| (Erlangshen measured
+#: 2.8e-3 against 2e-2, Wenzhong 1.6e-2 against 1e-1). The batch is the
+#: RD_BF16_ROWS test rows with the most padding (about a third of their
+#: encoder tokens), so the planted fault (the encoder padding mask
+#: dropped, every query attending to the pads) has pads to attend to
+RD_BF16_RTOL = 5e-2
+RD_BF16_ROWS = 16
+#: rows of the cached greedy and beam checks, and the beam width
+RD_TF_ROWS, RD_BEAMS = 8, 4
+#: the cached-greedy bar: each token within TF_MARGIN of the uncached
+#: forward's argmax, or within RD_TIE_ULPS bf16 ulps of the argmax logit.
+#: TF_MARGIN was set for Ziya's logits of order 10 (an ulp of 1/16);
+#: Randeng's untied random head (N(0, 1), the reference's init) puts
+#: the top logit near 4 x sqrt(1024) ~ 130, where one bf16 ulp is 1.0,
+#: and the cached and uncached decoders round differently (a sound H100
+#: run parted by at most 2 ulps, PERF.md §6). A cache fault (a wrong
+#: position bias or cross K/V) moves a token by tens of logits: a
+#: random model decoded chaotically parted by 64-75
+RD_TIE_ULPS = 4
+#: beam 4 re-scored by one uncached forward against greedy re-scored by
+#: the same forward: mean log-probability per generated token (length
+#: penalty 1.0, as the beam scores), beam no lower than greedy less this
+#: margin: one decision on a near-tie moves a token's log-probability by
+#: up to RD_TIE_ULPS ulps (2 nats at the top logit) between the cached
+#: logits the beam chose on and the uncached ones, spread over >= 8
+#: tokens of a row
+RD_BEAM_MARGIN = 0.25
+RD_CKPT_LAYERS = 2
+#: greedy decode steps traced with torch.profiler at batch 64
+RD_PROF_NEW = 8
+
+
+def profile_decode(run, steps: int) -> dict:
+    """Wall time, device busy time and kernels per decode step of one
+    ``run()`` (a decode of ``steps`` tokens) under ``torch.profiler``,
+    and the busy time by kernel group (CLS_PROFILE_GROUPS)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, kernels = 0.0, 0
+    groups = {g: 0.0 for g, _ in CLS_PROFILE_GROUPS}
+    groups["other"] = 0.0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and not getattr(
+                ev, "is_user_annotation", False):
+            us = ev.time_range.elapsed_us()
+            busy_us += us
+            kernels += 1
+            group = next((g for g, keys in CLS_PROFILE_GROUPS
+                          if any(k in ev.name for k in keys)), "other")
+            groups[group] += us / 1e3 / steps
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
+            "kernels_per_step": kernels / steps,
+            "group_ms_per_step": groups}
+
+
+class CharTokenizer:
+    """A character-level tokenizer with the surface ``Seq2SeqCollator``
+    and ``evaluate_and_save`` use (``encode``, ``batch_decode``,
+    ``pad_token_id``, ``eos_token_id``): pad 0, eos 1, unk 2, then the
+    phase's own characters (the card's machine has no Randeng
+    vocabulary)."""
+
+    pad_token_id, eos_token_id, unk_id = 0, 1, 2
+
+    def __init__(self, chars: str):
+        self.vocab = {c: i + 3 for i, c in enumerate(chars)}
+        self.chars = {i: c for c, i in self.vocab.items()}
+
+    def encode(self, text, add_special_tokens=True):
+        del add_special_tokens
+        return [self.vocab.get(c, self.unk_id) for c in text]
+
+    def batch_decode(self, rows, skip_special_tokens=False):
+        return ["".join(self.chars.get(int(i), "" if skip_special_tokens
+                                       else f"<{int(i)}>") for i in row)
+                for row in rows]
+
+
+def lcsts_rows(n: int, chars: str, rng) -> list:
+    out = []
+    for _ in range(n):
+        text = "".join(rng.choice(list(chars), rng.randint(*RD_TEXT_LEN)))
+        k = rng.randint(*RD_SUMMARY_LEN)
+        start = rng.randint(0, len(text) - k + 1)
+        out.append({"text": text, "summary": text[start:start + k]})
+    return out
+
+
+def randeng_argv(workdir: Path, model_dir: Path, data: dict,
+                 extra=()) -> list:
+    """The 784M summary shell's flags (randeng_t5_784M_summary.sh) with
+    local files for ``--datasets_name lcsts``, cut to RD_STEPS steps."""
+    return [str(x) for x in (
+        "--model_type", "t5", "--pretrained_model_path", model_dir,
+        "--output_save_path", workdir / "predict.json",
+        "--train_file", data["train"], "--val_file", data["val"],
+        "--test_file", data["test"], "--default_root_dir", workdir / "runs",
+        "--save_ckpt_path", workdir / "ckpt",
+        "--load_ckpt_path", workdir / "ckpt", "--monitor", "val_loss",
+        "--mode", "min", "--save_top_k", 3, "--save_last",
+        "--train_batchsize", RD_BATCH, "--val_batchsize", RD_BATCH,
+        "--test_batchsize", RD_BATCH, "--max_enc_length", RD_ENC,
+        "--max_dec_length", RD_DEC, "--prompt", "", "--learning_rate", 1e-4,
+        "--weight_decay", 1e-2, "--max_epochs", RD_STEPS, "--max_steps",
+        RD_STEPS, "--val_check_interval", RD_VAL_EVERY, "--precision",
+        "bf16", "--log_every_n_steps", 1, "--seed", 0, "--device", "cuda",
+        *extra)]
+
+
+def mean_logprob(logp, tokens, eos: int, horizon: int) -> list:
+    """Per row: the mean log-probability of the generated tokens (up to
+    and including the first eos, else to the horizon) under ``logp [B,
+    T, V]`` of the uncached forward over ``tokens[:, :-1]``: the beam's
+    own score at length penalty 1.0."""
+    out = []
+    for b in range(tokens.shape[0]):
+        row = tokens[b, 1:].tolist()
+        t = row.index(eos) + 1 if eos in row else horizon
+        out.append(float(logp[b, :t].gather(
+            1, tokens[b, 1:t + 1, None])[:, 0].sum()) / t)
+    return out
+
+
+def phase_randeng(workdir: Path, card):
+    """``seq2seq_summary.main`` with the 784M summary shell's flags on
+    Randeng-T5-784M at full width and depth (fp32 weights made on the
+    card from a seed, bf16 compute, dropout 0.1): RD_STEPS steps of 64 x
+    (128 + 64), validation every RD_VAL_EVERY steps with checkpoints kept
+    by ``val_loss``, then greedy ``predict.json`` over the RD_TEST test
+    records from the best one, with ROUGE. ``--do_eval_only`` with beam
+    4 writes its own file, and with ``--num_beams 1`` the fit's again,
+    byte for byte. On those weights: the bf16 forward held to fp32
+    compute (the encoder padding mask dropped must fail that bar);
+    RD_TF_ROWS rows of cached greedy decode held to one uncached forward,
+    and their beam-4 outputs, re-scored by it, no worse than greedy's.
+    A 2-layer model at that width written as an HF-named checkpoint and
+    read back through ``load_hf_pretrained`` gives bitwise logits. K1-K4
+    launch 0 times: T5 computes its own attention with a position bias,
+    as the reference does."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from fengshen_tpu_torch.examples.summary import seq2seq_summary as ss
+    from fengshen_tpu_torch.models.t5 import (T5Config,
+                                              T5ForConditionalGeneration)
+    from fengshen_tpu_torch.models.t5 import convert
+    from fengshen_tpu_torch.ops.kernels import reset_launch_counts
+    from fengshen_tpu_torch.utils.generate import seq2seq_generate
+    from fengshen_tpu_torch.utils.universal_checkpoint import (
+        committed_steps)
+
+    free = shutil.disk_usage(workdir).free / 2**30
+    if free < RD_MIN_DISK_GIB:
+        raise AssertionError(f"randeng: {free:.1f} GiB free under "
+                             f"{workdir}, the phase needs {RD_MIN_DISK_GIB}")
+    t_phase = time.perf_counter()
+    failures = []
+    raw = json.loads(RANDENG_CONFIG.read_text())
+    cfg = T5Config.from_pretrained(str(RANDENG_CONFIG))
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in T5ForConditionalGeneration(
+            cfg, device="meta").parameters())
+    if n_params != RD_PARAMS or (cfg.num_layers, cfg.num_decoder_layers) \
+            != (24, 24):
+        raise AssertionError(f"randeng: {n_params} parameters, "
+                             f"{cfg.num_layers} + {cfg.num_decoder_layers} "
+                             f"layers (want {RD_PARAMS}, 24 + 24)")
+    model_dir = config_dir(workdir / "randeng", raw)
+    rng = np.random.RandomState(14)
+    chars = "".join(chr(0x4E00 + i) for i in range(RD_CHARS))
+    tok = CharTokenizer(chars)
+    data, splits = {}, {}
+    for split, n in (("train", RD_TRAIN), ("val", RD_VAL),
+                     ("test", RD_TEST)):
+        splits[split] = lcsts_rows(n, chars, rng)
+        data[split] = write_jsonl(workdir / f"lcsts_{split}.json",
+                                  splits[split])
+    argv = randeng_argv(workdir, model_dir, data, (
+        "--profile_steps", ",".join(map(str, RD_PROFILE))))
+
+    # 1. the shell's fine-tune, then greedy predict.json from the best
+    # val_loss checkpoint
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = ss.main(argv, tokenizer=tok)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    history = trainer.history
+    cb = next(c for c in trainer.callbacks if hasattr(c, "stats"))
+    io = dict(cb.stats)
+    steps = [e for e in history if "loss" in e]
+    losses = [e["loss"] for e in steps]
+    vals = {e["step"]: e["val_loss"] for e in history if "val_loss" in e}
+    rouge = next(e for e in history if e.get("event") == "rouge")
+    flops_per_token = steps[-1]["flops_per_token"]
+    profiled = set(range(RD_PROFILE[0] + 1, RD_PROFILE[1] + 1))
+    skip = profiled | {RD_PROFILE[1] + 1} | {s + 1 for s in vals}
+    step_s = sorted(e["step_time_s"] for e in steps
+                    if e["step"] >= 2 and e["step"] not in skip)
+    median_s = step_s[len(step_s) // 2]
+    profile = step_profile(trainer, profiled)
+    kept = committed_steps(str(workdir / "ckpt"))
+    best = min(vals, key=lambda s: (vals[s], s)) if vals else None
+    greedy_file = (workdir / "predict.json").read_text()
+    pred_rows = len(greedy_file.splitlines())
+    if len(losses) != RD_STEPS or not np.isfinite(losses).all():
+        failures.append(f"losses {losses}")
+    if sorted(vals) != list(range(RD_VAL_EVERY, RD_STEPS + 1,
+                                  RD_VAL_EVERY)) or \
+            not np.isfinite(list(vals.values())).all():
+        failures.append(f"validations {vals}")
+    if kept != sorted(vals) or trainer.global_step != best:
+        failures.append(f"kept {kept}, predicted from step "
+                        f"{trainer.global_step} (best {best})")
+    if pred_rows != RD_TEST or rouge["rows"] != RD_TEST:
+        failures.append(f"predict.json {pred_rows} rows, ROUGE over "
+                        f"{rouge['rows']} (want {RD_TEST})")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. --do_eval_only from the saved checkpoints: beam 4, then greedy
+    # (the fit's file again, byte for byte)
+    eval_only = argv[:argv.index("--profile_steps")] + ["--do_eval_only"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    beam_run = ss.main(eval_only + ["--num_beams", str(RD_BEAMS),
+                                    "--output_save_path",
+                                    str(workdir / "predict_beam.json")],
+                       tokenizer=tok)
+    torch.cuda.synchronize()
+    beam_eval_s = time.perf_counter() - t0
+    eval_io = [next(c for c in beam_run.callbacks
+                    if hasattr(c, "stats")).stats]
+    del beam_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    beam_rows = len((workdir / "predict_beam.json").read_text()
+                    .splitlines())
+    t0 = time.perf_counter()
+    again = ss.main(eval_only + ["--num_beams", "1"], tokenizer=tok)
+    torch.cuda.synchronize()
+    greedy_eval_s = time.perf_counter() - t0
+    launches = {k: v + kernel_launches()[k] for k, v in launches.items()}
+    eval_equal = (workdir / "predict.json").read_text() == greedy_file
+    if not eval_equal or beam_rows != RD_TEST or again.global_step != best:
+        failures.append(f"--do_eval_only: greedy file equal {eval_equal}, "
+                        f"beam rows {beam_rows}, restored step "
+                        f"{again.global_step} (best {best})")
+    model = again.state.model
+    model.requires_grad_(False)
+    eval_io.append(next(c for c in again.callbacks
+                        if hasattr(c, "stats")).stats)
+    for stats in eval_io:
+        for key in ("restores", "bytes_read", "restore_s"):
+            io[key] += stats[key]
+    del again
+    shutil.rmtree(workdir / "ckpt")
+
+    # 3. numerics on those weights
+    collator = ss.Seq2SeqCollator(tok, max_src_length=RD_ENC,
+                                  max_tgt_length=RD_DEC)
+    test = collator(splits["test"])
+    by_pad = np.argsort(test["attention_mask"].sum(1), kind="stable")
+    rows = by_pad[:RD_BF16_ROWS]
+    batch = {k: torch.as_tensor(v[rows]).to("cuda") for k, v in test.items()}
+    reset_launch_counts()
+
+    def logits(dtype, mask=True):
+        before, model.config.dtype = model.config.dtype, dtype
+        try:
+            with torch.no_grad():
+                return model(batch["input_ids"], batch["decoder_input_ids"],
+                             attention_mask=batch["attention_mask"]
+                             if mask else None).float()
+        finally:
+            model.config.dtype = before
+
+    want = logits("float32")
+    rel = ((logits("bfloat16") - want).norm() / want.norm()).item()
+    rel_fault = ((logits("bfloat16", mask=False) - want).norm() /
+                 want.norm()).item()
+    pad_share = 1.0 - batch["attention_mask"].float().mean().item()
+    if rel > RD_BF16_RTOL or rel_fault <= RD_BF16_RTOL:
+        failures.append(f"bf16 vs fp32 logits rel L2 {rel} (limit "
+                        f"{RD_BF16_RTOL}); encoder mask dropped "
+                        f"{rel_fault}")
+    del want
+
+    # cached greedy and beam 4 on RD_TF_ROWS rows, re-scored by one
+    # uncached forward; then each decode timed at batch 64
+    ids = torch.as_tensor(test["input_ids"][:RD_TF_ROWS]).to("cuda")
+    mask = torch.as_tensor(test["attention_mask"][:RD_TF_ROWS]).to("cuda")
+    common = dict(max_new_tokens=RD_DEC, decoder_start_token_id=0,
+                  eos_token_id=1, pad_token_id=0, device="cuda")
+    greedy = seq2seq_generate(model, ids, mask, **common)
+    beam = seq2seq_generate(model, ids, mask, num_beams=RD_BEAMS, **common)
+    worst_gap = worst_ulps = 0.0
+    exact = total = 0
+    scores = {}
+    for name, out in (("greedy", greedy), ("beam", beam)):
+        with torch.no_grad():
+            pred = model(ids, out[:, :-1], attention_mask=mask).float()
+        logp = torch.log_softmax(pred, -1)
+        scores[name] = mean_logprob(logp, out, 1, RD_DEC)
+        if name != "greedy":
+            continue
+        for b in range(RD_TF_ROWS):
+            row = out[b, 1:].tolist()
+            t = row.index(1) + 1 if 1 in row else RD_DEC
+            top = pred[b, :t].max(-1).values
+            chosen = pred[b, :t].gather(1, out[b, 1:t + 1, None])[:, 0]
+            gap = top - chosen
+            # one bf16 ulp at the argmax logit: 2^(exponent - 7)
+            ulp = torch.exp2(torch.floor(torch.log2(top.abs())) - 7)
+            worst_gap = max(worst_gap, gap.max().item())
+            worst_ulps = max(worst_ulps, (gap / ulp).max().item())
+            bad = (gap > TF_MARGIN) & (gap > RD_TIE_ULPS * ulp)
+            if bad.any():
+                failures.append(f"cached greedy row {b}: a token "
+                                f"{gap[bad].max().item()} below the "
+                                f"uncached argmax")
+            exact += int((gap == 0).sum())
+            total += t
+    beam_minus_greedy = [s - g for s, g in zip(scores["beam"],
+                                               scores["greedy"])]
+    if min(beam_minus_greedy) < -RD_BEAM_MARGIN:
+        failures.append(f"beam {RD_BEAMS} re-scored below greedy: "
+                        f"{beam_minus_greedy} (margin {RD_BEAM_MARGIN})")
+    ids64 = torch.as_tensor(test["input_ids"][:RD_BATCH]).to("cuda")
+    mask64 = torch.as_tensor(test["attention_mask"][:RD_BATCH]).to("cuda")
+    decode_ms = {}
+    for name, beams in (("greedy", 1), (f"beam{RD_BEAMS}", RD_BEAMS)):
+        seq2seq_generate(model, ids64, mask64, num_beams=beams,
+                         **dict(common, max_new_tokens=4))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq2seq_generate(model, ids64, mask64, num_beams=beams, **common)
+        torch.cuda.synchronize()
+        decode_ms[name] = (time.perf_counter() - t0) * 1e3 / RD_DEC
+    decode_profile = profile_decode(
+        lambda: seq2seq_generate(model, ids64, mask64,
+                                 **dict(common, max_new_tokens=RD_PROF_NEW)),
+        RD_PROF_NEW)
+    launches = {k: v + kernel_launches()[k] for k, v in launches.items()}
+    del model, batch, ids64, mask64
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. 2 layers at full width through an HF-named checkpoint
+    raw2 = dict(raw, num_layers=RD_CKPT_LAYERS,
+                num_decoder_layers=RD_CKPT_LAYERS)
+    cfg2 = T5Config(**{k: v for k, v in raw2.items()
+                       if not k.startswith("_") and k != "model_type"})
+    src = T5ForConditionalGeneration(cfg2, device="cuda",
+                                     generator=torch.Generator(
+                                         device="cuda").manual_seed(4))
+    hf_dir = config_dir(workdir / "randeng_hf2", raw2)
+    t0 = time.perf_counter()
+    exported = write_safetensors(
+        hf_dir / "model.safetensors",
+        convert.params_to_torch_state(src.state_dict(), cfg2))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, dst = convert.load_hf_pretrained(str(hf_dir), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        ckpt_bitwise = all(torch.equal(
+            src(ids, greedy[:, :-1], attention_mask=mask),
+            dst(ids, greedy[:, :-1], attention_mask=mask))
+            for _ in range(2))
+    if not ckpt_bitwise:
+        failures.append("2-layer HF checkpoint: logits not bitwise")
+    del src, dst
+    shutil.rmtree(hf_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: v + kernel_launches()[k] for k, v in launches.items()}
+    if any(launches.values()):
+        failures.append(f"kernel launches on the summary path: {launches}")
+    tokens = RD_BATCH * (RD_ENC + RD_DEC)
+    tokens_per_s = tokens / median_s
+    say("randeng", card=card, config=RANDENG_CONFIG.name,
+        n_params=n_params, layers=[cfg.num_layers, cfg.num_decoder_layers],
+        steps=RD_STEPS, batch=RD_BATCH, enc_len=RD_ENC, dec_len=RD_DEC,
+        disk_free_gib=free, fit_s=fit_s, step1_s=steps[0]["step_time_s"],
+        step_time_s_median=median_s,
+        step_time_s_range=[step_s[0], step_s[-1]],
+        step_s=[e["step_time_s"] for e in steps],
+        tokens_per_step=tokens, tokens_counted="encoder and decoder",
+        tokens_per_s=tokens_per_s, flops_per_token=flops_per_token,
+        mfu=flops_per_token * tokens_per_s / BF16_FLOPS,
+        max_memory_allocated_gib=peak_gib, losses=losses, val_loss=vals,
+        kept_steps=kept, best_step=best, rouge=rouge,
+        predict_rows=pred_rows, beam_rows=beam_rows,
+        eval_only_greedy_equal=eval_equal, beam_eval_s=beam_eval_s,
+        greedy_eval_s=greedy_eval_s, profile=profile,
+        bf16_vs_fp32_rel_l2=rel, encoder_mask_dropped_rel_l2=rel_fault,
+        bf16_rtol=RD_BF16_RTOL, bf16_rows_pad_share=pad_share,
+        tf_rows=RD_TF_ROWS, tf_tokens=total, tf_exact_argmax=exact,
+        tf_worst_gap=worst_gap, tf_worst_gap_ulps=worst_ulps,
+        tf_margin=TF_MARGIN, tie_ulps=RD_TIE_ULPS,
+        greedy_mean_logprob=scores["greedy"],
+        beam_mean_logprob=scores["beam"],
+        beam_minus_greedy=beam_minus_greedy, beam_margin=RD_BEAM_MARGIN,
+        decode_ms_per_step_batch64=decode_ms,
+        greedy_decode_profile=decode_profile,
+        export_gib=exported / 2**30,
+        export_write_gib_per_s=exported / 2**30 / max(export_s, 1e-9),
+        hf_load_s=load_s, hf_ckpt_bitwise=ckpt_bitwise,
+        ckpt_saves=io["saves"], ckpt_gib_written=io["bytes_written"] / 2**30,
+        ckpt_write_gib_per_s=io["bytes_written"] / 2**30 /
+        max(io["save_s"], 1e-9),
+        ckpt_restores=io["restores"], ckpt_gib_read=io["bytes_read"] / 2**30,
+        ckpt_read_gib_per_s=io["bytes_read"] / 2**30 /
+        max(io["restore_s"], 1e-9),
+        kernel_launches=launches, phase_s=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("randeng: " + "; ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -4563,6 +5043,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         wz_launches, wz_rows = phase_wenzhong(Path(tmp), card)
         mark("13_wenzhong")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_randeng(Path(tmp), card)
+        mark("14_randeng")
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     main_row = rows[("paged", 1)]

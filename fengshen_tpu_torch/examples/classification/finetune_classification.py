@@ -12,10 +12,12 @@ callback of :class:`TaskModelCheckpoint`) -> :class:`ClassificationModule`
 restores the checkpoint and predicts.
 
 Ported families (``model_dict``): ``huggingface-bert`` (the parser's
-default; the RoBERTa AFQMC demos) and ``huggingface-megatron_bert`` (the
-Erlangshen shells); ``huggingface-auto`` resolves through the
+default; the RoBERTa AFQMC demos), ``huggingface-megatron_bert`` (the
+Erlangshen shells), ``fengshen-megatron_t5`` (``T5EncoderModel``, its
+first token pooled) and ``fengshen-bart`` (``BartModel.encode``, the
+last real token pooled); ``huggingface-auto`` resolves through the
 checkpoint's ``config.json`` and warns when it falls back. The other
-families (roformer, megatron_t5, longformer, zen1, bart),
+families (roformer, longformer, zen1),
 ``--offload_params`` / ``--offload_optimizer`` and ``--dataset_name`` (a
 ``datasets.load_dataset`` download) raise ``NotImplementedError``
 naming their ROADMAP.md queue item.
@@ -58,6 +60,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from fengshen_tpu_torch.device import resolve_device
 from fengshen_tpu_torch.models.layers import init_weights, place
 from fengshen_tpu_torch.parallel.cross_entropy import stable_cross_entropy
 from fengshen_tpu_torch.trainer.module import TrainModule
@@ -75,10 +78,12 @@ model_dict: dict = {
                                   "MegatronBertConfig",
                                   "MegatronBertModel"),
     "fengshen-roformer": None,
-    "fengshen-megatron_t5": None,
+    "fengshen-megatron_t5": ("fengshen_tpu_torch.models.t5", "T5Config",
+                             "T5EncoderModel"),
     "fengshen-longformer": None,
     "fengshen-zen1": None,
-    "fengshen-bart": None,
+    "fengshen-bart": ("fengshen_tpu_torch.models.bart", "BartConfig",
+                      "BartModel"),
 }
 
 #: config.json model_type -> model_dict key, for ``huggingface-auto``
@@ -323,8 +328,9 @@ class TaskDataModel:
 # -- model ----------------------------------------------------------------
 
 class TaskModel(nn.Module):
-    """The encoder (``bert_encoder``) with its pooler, then a linear
-    ``cls_layer`` over the pooled ``[CLS]`` (:345). ``cls_layer`` is a
+    """The encoder (``bert_encoder``) with its pooler (T5: the first
+    token; BART: the last real token), then a linear ``cls_layer`` over
+    the pooled representation (:345). ``cls_layer`` is a
     flax ``nn.Dense`` with no dtype in the reference: fp32 parameters,
     and the pooled input promoted to fp32, so the logits are fp32.
     ``device=None`` means ``cuda``; the weights are drawn there from
@@ -337,24 +343,61 @@ class TaskModel(nn.Module):
         _, _, encoder_cls = _family(model_type)
         self.config, self.model_type = config, model_type
         with torch.device("meta"):
-            self.bert_encoder = encoder_cls(config, add_pooling_layer=True,
-                                            device="meta", init=False)
+            if model_type == "fengshen-megatron_t5":
+                self.bert_encoder = encoder_cls(config, device="meta",
+                                                init=False)
+            elif model_type == "fengshen-bart":
+                self.bert_encoder = encoder_cls(config, device="meta",
+                                                init=False,
+                                                with_decoder=False)
+            else:
+                self.bert_encoder = encoder_cls(
+                    config, add_pooling_layer=True, device="meta",
+                    init=False)
             self.cls_layer = nn.Linear(config.hidden_size, num_labels,
                                        dtype=torch.float32)
-        place(self, device, generator, init,
-              getattr(config, "initializer_range", 0.02))
+        place(self, device, None, False, 0.0)
+        dev = resolve_device(device)
+        if init and dev.type != "meta":
+            self.init_weights(generator or torch.Generator(
+                device=dev).manual_seed(0))
 
     def init_weights(self, generator: torch.Generator) -> None:
-        init_weights(self, generator,
-                     getattr(self.config, "initializer_range", 0.02))
+        std = getattr(self.config, "initializer_range", 0.02)
+        if self.model_type == "fengshen-megatron_t5":
+            # T5's own initialisers for the encoder, then the head
+            self.bert_encoder.init_weights(generator)
+            init_weights(self.cls_layer, generator, std)
+        else:
+            init_weights(self, generator, std)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 deterministic: bool = True,
                 dropout_rng: Optional[torch.Generator] = None):
-        _, encode = self.bert_encoder(
-            input_ids, attention_mask=attention_mask,
-            token_type_ids=token_type_ids, deterministic=deterministic,
-            dropout_rng=dropout_rng)
+        if self.model_type == "fengshen-megatron_t5":
+            # the T5 encoder has no pooler: the first token (:358-363)
+            encode = self.bert_encoder(
+                input_ids, attention_mask=attention_mask,
+                deterministic=deterministic, dropout_rng=dropout_rng)[:, 0]
+        elif self.model_type == "fengshen-bart":
+            # the encoder alone, pooled at the last real token (the eos,
+            # as HF's BartForSequenceClassification pools it, :364-375)
+            hidden = self.bert_encoder.encode(
+                input_ids, attention_mask=attention_mask,
+                deterministic=deterministic, dropout_rng=dropout_rng)
+            if attention_mask is None:
+                last = torch.full((input_ids.shape[0],),
+                                  input_ids.shape[1] - 1,
+                                  device=input_ids.device)
+            else:
+                last = (attention_mask.sum(-1) - 1).clamp(min=0)
+            encode = hidden[torch.arange(hidden.shape[0],
+                                         device=hidden.device), last.long()]
+        else:
+            _, encode = self.bert_encoder(
+                input_ids, attention_mask=attention_mask,
+                token_type_ids=token_type_ids, deterministic=deterministic,
+                dropout_rng=dropout_rng)
         return self.cls_layer(encode.float())
 
 
@@ -462,15 +505,19 @@ class ClassificationModule(TrainModule):
                 "logits": self._apply(batch, deterministic=True)}
 
     def flops_per_token(self) -> Optional[float]:
-        """6 x the parameters of the matrix products (embedding tables
-        excluded) plus the attention's 12 x layers x hidden x
-        ``--max_length``."""
+        """6 x the parameters of the matrix products (embedding, position
+        and bias tables excluded) plus the attention's 12 x encoder
+        layers x hidden x ``--max_length``."""
         cfg = self.config
+        tables = ("embeddings", "shared", "embed_positions",
+                  "relative_attention_bias")
         n = sum(p.numel() for name, p in self.model.named_parameters()
-                if p.dim() >= 2 and "embeddings" not in name)
+                if p.dim() >= 2 and not any(t in name for t in tables))
         seq = int(getattr(self.args, "max_length", 128))
-        return 6.0 * n + 12.0 * cfg.num_hidden_layers * \
-            cfg.hidden_size * seq
+        # the encoder's layers: T5's num_layers, BART's encoder_layers
+        layers = getattr(cfg, "encoder_layers", None) or \
+            getattr(cfg, "num_layers", None) or cfg.num_hidden_layers
+        return 6.0 * n + 12.0 * layers * cfg.hidden_size * seq
 
 
 # -- checkpoint arg surface -------------------------------------------------

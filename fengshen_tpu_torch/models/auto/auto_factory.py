@@ -5,7 +5,8 @@
 ``fengshen_model_type`` or ``model_type``, :117-122) to the family's
 module, config class and heads, imported on first use (:14-101). The
 families the port has are registered with their heads: ``llama``,
-``ziya_llama``, ``gpt2``, ``megatron-bert`` and ``bert``. A family the
+``ziya_llama``, ``gpt2``, ``megatron-bert``, ``bert``, ``t5``, ``bart``
+and ``pegasus``. A family the
 JAX package registers and the port does not have yet raises
 ``NotImplementedError`` naming ROADMAP.md queue 1 item 11; an unknown
 ``model_type`` raises ``KeyError``, as the reference does.
@@ -16,8 +17,9 @@ passing its keyword arguments on (``device="cpu"``, ``generator``,
 card unless asked otherwise). Loading weights stays with each family's
 ``convert.load_hf_pretrained`` (the reference's
 ``AutoModel.from_pretrained`` is not ported). :class:`AutoTokenizer`
-defers to ``transformers``, imported there only, as
-``pipelines/text_generation.auto_tokenizer`` does.
+resolves the char-level Randeng T5 tokenizers (``megatron_t5``,
+``t5_char``) to ``models/t5``'s ``T5Tokenizer`` and defers the rest to
+``transformers``, imported there only.
 """
 
 from __future__ import annotations
@@ -47,17 +49,30 @@ MODEL_REGISTRY: dict[str, tuple[str, str, dict[str, str]]] = {
                            "MegatronBertForTokenClassification"}),
     "bert": ("fengshen_tpu_torch.models.bert", "BertConfig",
              {"base": "BertModel", "masked_lm": "BertForMaskedLM"}),
+    "t5": ("fengshen_tpu_torch.models.t5", "T5Config",
+           {"base": "T5Model",
+            "conditional_generation": "T5ForConditionalGeneration",
+            "encoder": "T5EncoderModel"}),
+    "bart": ("fengshen_tpu_torch.models.bart", "BartConfig",
+             {"base": "BartModel",
+              "conditional_generation": "BartForConditionalGeneration"}),
+    "pegasus": ("fengshen_tpu_torch.models.pegasus", "PegasusConfig",
+                {"conditional_generation":
+                     "PegasusForConditionalGeneration"}),
 }
 
 #: the JAX package's registered families the port does not have yet
 NOT_YET_PORTED = (
-    "t5", "bart", "roformer", "albert", "deberta-v2", "longformer",
-    "pegasus", "zen", "deltalm", "zen2", "davae", "gavae", "ppvae",
+    "roformer", "albert", "deberta-v2", "longformer", "zen", "deltalm", "zen2", "davae", "gavae", "ppvae",
     "della", "transfo-xl-denoise", "transfo-xl-paraphrase",
     "transfo-xl-reasoning")
 
-#: tokenizer keys the reference resolves to its own T5 tokenizer
-_T5_TOKENIZERS = ("megatron_t5", "t5_char")
+#: model_type -> (module, factory) of the tokenizers transformers'
+#: AutoTokenizer cannot resolve (:193-198): the char-level Randeng T5
+TOKENIZER_REGISTRY: dict[str, tuple[str, str]] = {
+    "megatron_t5": ("fengshen_tpu_torch.models.t5", "T5Tokenizer"),
+    "t5_char": ("fengshen_tpu_torch.models.t5", "T5Tokenizer"),
+}
 
 
 def register_model(model_type: str, module: str, config_cls: str,
@@ -125,10 +140,10 @@ class AutoModel:
 
 
 class AutoTokenizer:
-    """The tokenizer of a checkpoint directory through
-    ``transformers.AutoTokenizer``; the reference's own T5 tokenizers
-    (``tokenizer_class`` / ``fengshen_model_type`` ``megatron_t5`` or
-    ``t5_char``) are not yet ported."""
+    """The tokenizer of a checkpoint directory: the reference's own T5
+    tokenizer when ``config.json`` names ``megatron_t5`` or ``t5_char``
+    (``tokenizer_class``, ``fengshen_model_type`` or ``model_type``,
+    :201-225), else ``transformers.AutoTokenizer``."""
 
     @staticmethod
     def from_pretrained(path: str, **kwargs) -> Any:
@@ -138,7 +153,10 @@ class AutoTokenizer:
             raw = _read_config(cfg_file)
             for key in ("tokenizer_class", "fengshen_model_type",
                         "model_type"):
-                if raw.get(key, "") in _T5_TOKENIZERS:
-                    raise _not_ported(f"the {raw[key]!r} tokenizer")
+                if raw.get(key, "") in TOKENIZER_REGISTRY:
+                    module_name, attr = TOKENIZER_REGISTRY[raw[key]]
+                    factory = getattr(importlib.import_module(module_name),
+                                      attr)
+                    return factory.from_pretrained(path, **kwargs)
         import transformers
         return transformers.AutoTokenizer.from_pretrained(path, **kwargs)

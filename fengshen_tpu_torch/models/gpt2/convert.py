@@ -27,9 +27,8 @@ import torch
 
 from fengshen_tpu_torch.device import resolve_device
 from fengshen_tpu_torch.models.gpt2.configuration_gpt2 import GPT2Config
-from fengshen_tpu_torch.utils.convert_common import (checkpoint_files,
-                                                     flax_to_state,
-                                                     iter_safetensors)
+from fengshen_tpu_torch.utils.convert_common import (flax_to_state,
+                                                     read_hf_state)
 
 #: the port's names in block ``i`` -> HF's under ``transformer.h.{i}.``,
 #: and whether the tensor is a ``Conv1D`` weight (transposed)
@@ -89,19 +88,6 @@ def params_to_torch_state(state_dict: Mapping[str, Any],
         t = state_dict[port]
         out[hf] = t.T.contiguous() if conv else t
     return out
-
-
-def read_hf_state(path: str) -> dict:
-    """The state dict of an HF checkpoint directory
-    (``convert_common.checkpoint_files``: every ``*.safetensors``, else
-    every ``pytorch_model*.bin``); a name in two files takes the later
-    file's tensor, as the reference's dict update does."""
-    fmt, files = checkpoint_files(path)
-    state: dict = {}
-    for f in files:
-        state.update(iter_safetensors(f) if fmt == "safetensors" else
-                     torch.load(f, map_location="cpu", weights_only=True))
-    return state
 
 
 @torch.no_grad()

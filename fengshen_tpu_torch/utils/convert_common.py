@@ -6,7 +6,8 @@ counterpart of ``fengshen_tpu/utils/convert_common.py``.
   length, a JSON header of ``dtype``, ``shape`` and ``data_offsets``,
   then the raw bytes. Files are read and written one tensor at a time.
 - :func:`checkpoint_files`: the weight files of an HF checkpoint
-  directory, as the reference's HF loaders pick them.
+  directory, as the reference's HF loaders pick them, and
+  :func:`read_hf_state`, their state dict.
 - :func:`load_torch_checkpoint` (:328): the state dict of a checkpoint
   directory in the file names the reference publishes under
   (``pytorch_model.bin``, a Lightning ``model.ckpt`` / ``last.ckpt``
@@ -118,6 +119,19 @@ def checkpoint_files(path: str) -> tuple:
     raise FileNotFoundError(
         f"no weights in {path!r}: looked for *.safetensors and "
         "pytorch_model*.bin")
+
+
+def read_hf_state(path: str) -> dict:
+    """The state dict of an HF checkpoint directory
+    (:func:`checkpoint_files`: every ``*.safetensors``, else every
+    ``pytorch_model*.bin``); a name in two files takes the later file's
+    tensor, as the reference's dict update does."""
+    fmt, files = checkpoint_files(path)
+    state: dict = {}
+    for f in files:
+        state.update(iter_safetensors(f) if fmt == "safetensors" else
+                     torch.load(f, map_location="cpu", weights_only=True))
+    return state
 
 
 def load_torch_checkpoint(ckpt_dir: str) -> Mapping[str, Any]:

@@ -17,6 +17,7 @@ beam search are not yet ported.
 from __future__ import annotations
 
 import functools
+import inspect
 from typing import Optional
 
 import torch
@@ -574,3 +575,330 @@ def prompt_lookup_generate(model, input_ids, attention_mask=None,
         eos_token_id=eos_token_id, pad_token_id=pad_token_id, seed=0,
         return_stats=return_stats, propose=propose,
         post_commit=lambda extra, n: extra, extra_init=())
+
+
+# -- encoder-decoder decoding ----------------------------------------------
+
+def _prepare_seq2seq(model, input_ids, attention_mask, device):
+    """The source ids (and mask, None staying None) on the model's
+    device, which must be ``device`` (None: ``cuda``)."""
+    dev = check_module_device(model, device)
+    input_ids = torch.as_tensor(input_ids, device=dev).long()
+    if attention_mask is not None:
+        attention_mask = torch.as_tensor(attention_mask, device=dev).long()
+    return dev, input_ids, attention_mask
+
+
+def _repeat_rows(x: Optional[torch.Tensor], n: int):
+    return None if x is None else x.repeat_interleave(n, dim=0)
+
+
+def _make_seq2seq_logits_fn(model, input_ids, attention_mask, expand: int):
+    """``logits_fn(dec_buf [N, L]) -> [N, L, V]`` for an encoder-decoder
+    model, the batch repeated ``expand`` times (the beam width), as
+    ``:679``: with ``encode`` and ``decode_logits`` (every family of the
+    zoo) the encoder runs once and only the decoder re-runs per step;
+    a model with only a full forward re-runs whole."""
+    mask = _repeat_rows(attention_mask, expand)
+    if hasattr(model, "encode") and hasattr(model, "decode_logits"):
+        enc = _repeat_rows(model.encode(input_ids, attention_mask), expand)
+        return lambda dec_buf: model.decode_logits(dec_buf, enc, mask)
+    ids = _repeat_rows(input_ids, expand)
+    return lambda dec_buf: model(ids, dec_buf, attention_mask=mask)
+
+
+def _seq2seq_supports_cache(model) -> bool:
+    """True when the model decodes over a ``Seq2SeqCache`` (``:713``):
+    it makes one (``new_cache``), and its ``decode_logits`` writes the
+    cache and reads the cross-attention K/V back from it
+    (``cross_from_cache``, ``:827``)."""
+    return hasattr(model, "encode") and hasattr(model, "new_cache")
+
+
+def _takes_position_offset(model) -> bool:
+    """Absolute-position decoders (the BART family) take the decode
+    step's position; T5's relative bias derives it from the cache."""
+    return "position_offset" in \
+        inspect.signature(model.decode_logits).parameters
+
+
+def _cache_capacity(model) -> int:
+    """The longest decode the cache takes (``:731``): the config's
+    ``decode_cache_length``, capped by ``max_position_embeddings`` for
+    absolute-position decoders, whose longer decodes take the buffer
+    path (which refuses them instead of clamping the position)."""
+    cfg = getattr(model, "config", None)
+    cap = getattr(cfg, "decode_cache_length", 512)
+    if _takes_position_offset(model):
+        cap = min(cap, getattr(cfg, "max_position_embeddings", cap))
+    return cap
+
+
+def _cached_decoder(model, enc, mask, rows: int, max_new_tokens: int):
+    """``(decode, cache)``: ``decode(tok [N], offset, prime) -> [N, V]``
+    gives the logits of one decoder step over ``cache``, which holds the
+    ``max_new_tokens`` positions a decode feeds; the priming call
+    (``prime``) projects the cross K/V into it, later calls read them
+    back."""
+    cache = model.new_cache(rows, max_new_tokens)
+    has_pos = _takes_position_offset(model)
+
+    def decode(tok, offset: int, prime: bool):
+        kw = {"cross_from_cache": not prime}
+        if has_pos:
+            kw["position_offset"] = offset
+        return model.decode_logits(tok[:, None], enc, mask, cache=cache,
+                                   **kw)[:, -1]
+    return decode, cache
+
+
+@torch.no_grad()
+def seq2seq_generate(model, input_ids, attention_mask=None, *,
+                     max_new_tokens: int = 32,
+                     decoder_start_token_id: int = 0,
+                     eos_token_id: Optional[int] = None,
+                     pad_token_id: int = 0, do_sample: bool = False,
+                     temperature: float = 1.0, top_k: int = 0,
+                     top_p: float = 0.0, num_beams: int = 1,
+                     length_penalty: float = 1.0,
+                     repetition_penalty: float = 1.0,
+                     no_repeat_ngram_size: int = 0, min_length: int = 0,
+                     seed: int = 0, device=None) -> torch.Tensor:
+    """Encoder-decoder decode (``:742``, the HF ``generate`` surface of
+    the seq2seq examples): greedy or sampled with ``num_beams == 1``,
+    else :func:`seq2seq_beam_search`. Returns ``[B, 1 + max_new_tokens]``
+    decoder ids starting with ``decoder_start_token_id``, padded after
+    eos. ``min_length`` counts decoder tokens, the start token included;
+    the controls act over the decoder sequence. A decode shorter than
+    :func:`_cache_capacity` runs over the model's cache, else over the
+    whole buffer each step; both draw row ``i``'s token ``t`` at
+    counter ``t - 1`` under ``seed``, so they sample alike. The model
+    must live on ``device`` (None: ``cuda``)."""
+    if num_beams > 1:
+        if do_sample:
+            raise ValueError(
+                "beam-multinomial sampling is not supported; use either "
+                "num_beams>1 (deterministic beam search) or do_sample=True")
+        return seq2seq_beam_search(
+            model, input_ids, attention_mask, max_new_tokens=max_new_tokens,
+            decoder_start_token_id=decoder_start_token_id,
+            eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+            num_beams=num_beams, length_penalty=length_penalty,
+            repetition_penalty=repetition_penalty,
+            no_repeat_ngram_size=no_repeat_ngram_size,
+            min_length=min_length, device=device)
+    dev, input_ids, attention_mask = _prepare_seq2seq(
+        model, input_ids, attention_mask, device)
+    batch = input_ids.shape[0]
+    length = max_new_tokens + 1
+    buf = torch.full((batch, length), pad_token_id, dtype=torch.long,
+                     device=dev)
+    buf[:, 0] = decoder_start_token_id
+    if max_new_tokens == 0:
+        return buf
+    control = _make_control(dict(
+        repetition_penalty=repetition_penalty,
+        no_repeat_ngram_size=no_repeat_ngram_size, min_length=min_length,
+        eos_token_id=eos_token_id))
+    draws = Draws.for_rows(seed, batch, device=dev).sub(STREAM_TOKEN)
+    select = functools.partial(_select_token, do_sample=do_sample,
+                               temperature=temperature, top_k=top_k,
+                               top_p=top_p)
+    finished = torch.zeros(batch, dtype=torch.bool, device=dev)
+    cached = _seq2seq_supports_cache(model) and \
+        max_new_tokens < _cache_capacity(model)
+    if cached:
+        # the encoder once, the cross K/V once (the priming call), then
+        # one decoder token per step (:846)
+        decode, _ = _cached_decoder(
+            model, model.encode(input_ids, attention_mask), attention_mask,
+            batch, max_new_tokens)
+        tok = buf[:, 0]
+    else:
+        logits_fn = _make_seq2seq_logits_fn(model, input_ids,
+                                            attention_mask, expand=1)
+    for t in range(1, length):
+        if cached:
+            logits = decode(tok, t - 1, prime=t == 1)
+        else:
+            logits = logits_fn(buf)[:, t - 1]
+        nxt = select(control(logits, buf, t), draws.at(t - 1))
+        nxt = torch.where(finished, pad_token_id, nxt)
+        if eos_token_id is not None:
+            finished = finished | (nxt == eos_token_id)
+        buf[:, t] = nxt
+        tok = nxt
+    return buf
+
+
+_BEAM_NEG = -1e9
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple:
+    """``lax.top_k`` over the last axis: the ``k`` largest values in
+    descending order, ties going to the lower index (``torch.topk``
+    promises no order among ties, and an unfilled beam pool holds many
+    at exactly -1e9). Returns ``(values, indices)``."""
+    kth = torch.topk(x, k, dim=-1).values[..., -1:]
+    above, tied = x > kth, x == kth
+    room = k - above.sum(-1, keepdim=True)
+    take = above | (tied & (tied.long().cumsum(-1) <= room))
+    pos = torch.arange(x.shape[-1], device=x.device).expand_as(x)
+    # the taken positions in ascending order, then a stable sort by value
+    idx = torch.topk(torch.where(take, -pos, torch.iinfo(torch.long).min),
+                     k, dim=-1).indices
+    vals = x.gather(-1, idx)
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
+    return vals.gather(-1, order), idx.gather(-1, order)
+
+
+def _f32_pow(base: float, exponent: float, device) -> torch.Tensor:
+    return torch.tensor(float(base), dtype=torch.float32,
+                        device=device) ** exponent
+
+
+def _beam_init(batch: int, K: int, length: int, pad_token_id: int,
+               decoder_start_token_id: int, device) -> tuple:
+    """``(alive_buf, alive_scores, fin_buf, fin_scores)``, only beam 0
+    live (``:911``)."""
+    alive_buf = torch.full((batch, K, length), pad_token_id,
+                           dtype=torch.long, device=device)
+    alive_buf[:, :, 0] = decoder_start_token_id
+    alive_scores = torch.full((batch, K), _BEAM_NEG, dtype=torch.float32,
+                              device=device)
+    alive_scores[:, 0] = 0.0
+    fin_buf = torch.full_like(alive_buf, pad_token_id)
+    fin_scores = torch.full((batch, K), _BEAM_NEG, dtype=torch.float32,
+                            device=device)
+    return alive_buf, alive_scores, fin_buf, fin_scores
+
+
+def _take_rows(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(buf [B, M, L], idx [B, k, None], axis=1)``."""
+    return buf.gather(1, idx[:, :, None].expand(-1, -1, buf.shape[2]))
+
+
+def _beam_select(alive_buf, alive_scores, fin_buf, fin_scores, log_probs,
+                 t: int, K: int, eos_token_id, length_penalty) -> tuple:
+    """One beam step (``:922``), shared by the cached and buffer paths:
+    expand the alive beams by the vocabulary, keep the top 2K
+    candidates, move the eos hypotheses into the finished pool
+    (length-penalised, merged top-K), re-select K alive beams. Returns
+    the new pools plus ``(src_beam, tok)``: which beam each new alive
+    beam extends, with what token."""
+    batch, vocab = alive_buf.shape[0], log_probs.shape[-1]
+    cand = (alive_scores[:, :, None] + log_probs).reshape(batch, -1)
+    scores2k, idx = _top_k(cand, 2 * K)
+    beam_idx, tok = idx // vocab, idx % vocab
+    buf2k = _take_rows(alive_buf, beam_idx).clone()
+    buf2k[:, :, t] = tok
+    if eos_token_id is not None:
+        is_eos = tok == eos_token_id
+        pen = scores2k / _f32_pow(t, length_penalty, cand.device)
+        pen = torch.where(is_eos, pen, _BEAM_NEG)
+        fin_scores, fin_idx = _top_k(torch.cat([fin_scores, pen], 1), K)
+        fin_buf = _take_rows(torch.cat([fin_buf, buf2k], 1), fin_idx)
+        scores2k = torch.where(is_eos, _BEAM_NEG, scores2k)
+    alive_scores, alive_idx = _top_k(scores2k, K)
+    alive_buf = _take_rows(buf2k, alive_idx)
+    return (alive_buf, alive_scores, fin_buf, fin_scores,
+            beam_idx.gather(1, alive_idx), tok.gather(1, alive_idx))
+
+
+def _beam_finish(alive_buf, alive_scores, fin_buf, fin_scores,
+                 max_new_tokens: int, length_penalty: float):
+    """The alive beams compete with the finished pool at the horizon
+    length; the best sequence of each row (``:954``)."""
+    horizon = _f32_pow(max_new_tokens, length_penalty, alive_buf.device)
+    all_scores = torch.cat([fin_scores, alive_scores / horizon], 1)
+    all_buf = torch.cat([fin_buf, alive_buf], 1)
+    best = all_scores.argmax(1)
+    return all_buf[torch.arange(all_buf.shape[0], device=best.device), best]
+
+
+@torch.no_grad()
+def seq2seq_beam_search(model, input_ids, attention_mask=None, *,
+                        max_new_tokens: int = 32,
+                        decoder_start_token_id: int = 0,
+                        eos_token_id: Optional[int] = None,
+                        pad_token_id: int = 0, num_beams: int = 4,
+                        length_penalty: float = 1.0,
+                        repetition_penalty: float = 1.0,
+                        no_repeat_ngram_size: int = 0,
+                        min_length: int = 0, device=None) -> torch.Tensor:
+    """Beam search over an encoder-decoder model (``:1072``). A
+    hypothesis ending with eos at generated length ``t`` (the start token
+    excluded, eos included) scores ``sum_logprobs / t ** length_penalty``;
+    alive beams at the horizon score so at ``t = max_new_tokens``. The
+    logits controls act on the log-probabilities, as HF's beam search
+    runs its processors. A decode shorter than :func:`_cache_capacity`
+    runs over the cache (``:966``; a reorder gathers only the
+    self-attention rows), else over the whole buffer. Returns the best
+    sequence of each row, ``[B, 1 + max_new_tokens]``."""
+    dev, input_ids, attention_mask = _prepare_seq2seq(
+        model, input_ids, attention_mask, device)
+    batch = input_ids.shape[0]
+    if max_new_tokens == 0:
+        return torch.full((batch, 1), decoder_start_token_id,
+                          dtype=torch.long, device=dev)
+    K, length = num_beams, max_new_tokens + 1
+    N = batch * K
+    row_control = _make_control(dict(
+        repetition_penalty=repetition_penalty,
+        no_repeat_ngram_size=no_repeat_ngram_size, min_length=min_length,
+        eos_token_id=eos_token_id))
+
+    def control(log_probs, alive_buf, cur):
+        return row_control(log_probs.reshape(N, -1),
+                           alive_buf.reshape(N, length),
+                           cur).reshape(batch, K, -1)
+
+    pools = _beam_init(batch, K, length, pad_token_id,
+                       decoder_start_token_id, dev)
+    cached = _seq2seq_supports_cache(model) and \
+        max_new_tokens < _cache_capacity(model)
+    if cached:
+        enc = _repeat_rows(model.encode(input_ids, attention_mask), K)
+        decode, cache = _cached_decoder(model, enc,
+                                        _repeat_rows(attention_mask, K), N,
+                                        max_new_tokens)
+        last_tok = torch.full((batch, K), decoder_start_token_id,
+                              dtype=torch.long, device=dev)
+        rows = torch.arange(batch, device=dev)[:, None] * K
+    else:
+        logits_fn = _make_seq2seq_logits_fn(model, input_ids,
+                                            attention_mask, expand=K)
+    for t in range(1, length):
+        alive_buf = pools[0]
+        if cached:
+            # last_tok was selected at step t-1 and sits at position t-1
+            logits = decode(last_tok.reshape(N), t - 1, prime=t == 1)
+        else:
+            logits = logits_fn(alive_buf.reshape(N, length))[:, t - 1]
+        log_probs = control(torch.log_softmax(logits.float(), dim=-1)
+                            .reshape(batch, K, -1), alive_buf, t)
+        *pools, src_beam, last_tok = _beam_select(
+            *pools, log_probs, t, K, eos_token_id, length_penalty)
+        if cached:
+            cache.reorder((rows + src_beam).reshape(-1))
+    return _beam_finish(*pools, max_new_tokens, length_penalty)
+
+
+def seq2seq_predict_step(model, config, args, batch: dict, *,
+                         max_new_tokens: int) -> torch.Tensor:
+    """The ``predict_step`` body of the seq2seq example modules
+    (``:1054``): beam or greedy decode driven by the parsed flags
+    (``--num_beams``, ``--length_penalty`` and the controls), on the
+    batch's device."""
+    return seq2seq_generate(
+        model, batch["input_ids"], batch.get("attention_mask"),
+        max_new_tokens=max_new_tokens,
+        decoder_start_token_id=getattr(config, "decoder_start_token_id", 0),
+        eos_token_id=getattr(config, "eos_token_id", None),
+        pad_token_id=getattr(config, "pad_token_id", 0) or 0,
+        num_beams=getattr(args, "num_beams", 1),
+        length_penalty=getattr(args, "length_penalty", 1.0),
+        repetition_penalty=getattr(args, "repetition_penalty", 1.0),
+        no_repeat_ngram_size=getattr(args, "no_repeat_ngram_size", 0),
+        min_length=getattr(args, "min_length", 0),
+        device=batch["input_ids"].device)

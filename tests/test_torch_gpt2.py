@@ -556,6 +556,18 @@ FAMILIES = {
     "bert": {"vocab_size": 64, "hidden_size": 32, "num_hidden_layers": 1,
              "num_attention_heads": 4, "intermediate_size": 64,
              "dtype": "float32"},
+    "t5": {"vocab_size": 64, "d_model": 32, "d_kv": 8, "d_ff": 64,
+           "num_layers": 1, "num_heads": 4, "dtype": "float32"},
+    "bart": {"vocab_size": 64, "d_model": 32, "encoder_layers": 1,
+             "decoder_layers": 1, "encoder_attention_heads": 4,
+             "decoder_attention_heads": 4, "encoder_ffn_dim": 64,
+             "decoder_ffn_dim": 64, "max_position_embeddings": 16,
+             "dtype": "float32"},
+    "pegasus": {"vocab_size": 64, "d_model": 32, "encoder_layers": 1,
+                "decoder_layers": 1, "encoder_attention_heads": 4,
+                "decoder_attention_heads": 4, "encoder_ffn_dim": 64,
+                "decoder_ffn_dim": 64, "max_position_embeddings": 16,
+                "dtype": "float32"},
 }
 
 
@@ -585,9 +597,12 @@ def test_auto_resolves_the_ported_families_as_jax(tmp_path, family):
 
 def test_auto_refuses_unported_and_unknown_families(tmp_path):
     """A family the JAX package registers and the port lacks names
-    queue 1 item 11 (the reference's own T5 tokenizers too); an unknown
-    ``model_type`` raises ``KeyError`` as the JAX registry does;
-    ``register_model`` extends the registry."""
+    queue 1 item 11; an unknown ``model_type`` raises ``KeyError`` as
+    the JAX registry does; the reference's char-level T5 tokenizer
+    (``t5_char``) resolves to the port's ``T5Tokenizer``, as the JAX
+    ``AutoTokenizer`` resolves it; ``register_model`` extends the
+    registry."""
+    from fengshen_tpu.models.auto import AutoTokenizer as JaxTokenizer
     from fengshen_tpu.models.auto.auto_factory import MODEL_REGISTRY as JREG
     from fengshen_tpu_torch.models.auto import (AutoConfig, AutoModel,
                                                 AutoTokenizer,
@@ -595,15 +610,24 @@ def test_auto_refuses_unported_and_unknown_families(tmp_path):
     from fengshen_tpu_torch.models.auto import auto_factory
     assert set(JREG) == set(auto_factory.MODEL_REGISTRY) | \
         set(auto_factory.NOT_YET_PORTED)
-    for family in ("t5", "bart", "roformer"):
+    for family in ("roformer", "longformer", "zen"):
         with pytest.raises(NotImplementedError, match="queue 1 item 11"):
             AutoConfig.for_model(family)
     with pytest.raises(KeyError, match="unknown model_type"):
         AutoConfig.for_model("nope")
     (tmp_path / "config.json").write_text(json.dumps(
         {"model_type": "t5", "tokenizer_class": "t5_char"}))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        AutoTokenizer.from_pretrained(str(tmp_path))
+    (tmp_path / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "[EOS]"] +
+        list("今天天气很好摘要")))
+    tok = AutoTokenizer.from_pretrained(str(tmp_path))
+    jtok = JaxTokenizer.from_pretrained(str(tmp_path))
+    assert type(tok).__name__ == type(jtok).__name__ == "BertTokenizer"
+    assert tok.eos_token == jtok.eos_token == "[EOS]"
+    assert tok.sentinel_token_ids == jtok.sentinel_token_ids
+    assert len(tok.sentinel_token_ids) == 118
+    assert tok.encode("今天<extra_id_3>很好") == \
+        jtok.encode("今天<extra_id_3>很好")
     cfg = AutoConfig.for_model("gpt2", **FAMILIES["gpt2"])
     with pytest.raises(KeyError, match="no registered model"):
         AutoModel.from_config(cfg, head="masked_lm")

@@ -126,6 +126,22 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):
     for entry in (wenzhong_main, yuyuan_main):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(["--model_path", str(tmp_path / "gpt2")])
+    from fengshen_tpu_torch.examples.summary.seq2seq_summary import \
+        main as summary_main
+    from fengshen_tpu_torch.models.t5 import (T5Config,
+                                              T5ForConditionalGeneration)
+    from fengshen_tpu_torch.utils.generate import seq2seq_generate
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T5ForConditionalGeneration(T5Config.small_test_config())
+    t5 = T5ForConditionalGeneration(T5Config.small_test_config(
+        dtype="float32"), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        seq2seq_generate(t5, [[5, 6]], max_new_tokens=2)
+    T5Config.small_test_config().save_pretrained(str(tmp_path / "t5"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        summary_main(["--pretrained_model_path", str(tmp_path / "t5")])
     # a model asked for on the CPU runs there
     out = generate(model, [[5, 6]], max_new_tokens=2, device="cpu")
     assert out.shape == (1, 4)
+    assert seq2seq_generate(t5, [[5, 6]], max_new_tokens=2,
+                            device="cpu").shape == (1, 3)
