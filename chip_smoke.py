@@ -167,7 +167,30 @@ Phases (each raises on failure, so any failure exits non-zero):
    times. Free disk is checked first; step time, tokens/s (encoder and
    decoder tokens), MFU, peak memory, checkpoint GiB/s and decode ms per
    step (greedy and beam 4, batch 64, with a profiled greedy window)
-   are printed.
+   are printed;
+15. Randeng pretraining: ``pretrain_t5.main`` with the flags of the
+   reference's ``pretrain_randeng_t5_char_700M.sh`` on Randeng-T5-784M
+   at all 24 + 24 layers (the parameter count checked first): 20 steps
+   of 8 x (512 + 114) span-corruption tokens over text records made
+   from a seed, one checkpoint, every batch's labels holding its
+   input's sentinels in order (shifted sentinels must fail that check),
+   then ``--do_eval_only`` (one validation sweep, no step) and the bf16
+   forward held to fp32 compute on padded rows (the encoder mask
+   dropped must fail the bar); then ``finetune_t5_cmrc.main`` with the
+   CMRC shell's flags at the same geometry (its batch of 32, or the
+   largest the card's memory takes, reckoned first and printed), 10
+   steps, and its beam-4 predictions from ``--do_eval_only``;
+16. the other seq2seq families at the JAX package's default geometries
+   and full depth: ``pretrain_bart.main`` (BART 6 + 6 of 768,
+   139,470,681 parameters) over an indexed corpus the phase writes with
+   the port's builder, ``finetune_bart.main`` (``--mask_ans_style
+   anstoken``) on the weights it leaves, ``pretrain_pegasus.main``
+   (Pegasus 16 + 16 of 1024, 568,796,007; gap sentences at 0.25) and
+   ``finetune_deltalm.main`` (DeltaLM 12 + 6 of 768, 362,510,592; 16 x
+   (256 + 256), label smoothing 0.1), then 8 rows of cached greedy
+   DeltaLM decode held to one uncached forward. Phases 15-16 check free
+   device memory and disk first, launch K1-K4 0 times, and print step
+   time, tokens/s, peak memory and losses per fit.
 
 Phase 3 also holds K2 (fused LM-head cross-entropy: forward, dx, dK) to
 its plain version at the long-context path's shape (T = 32767 tokens,
@@ -4969,6 +4992,746 @@ def phase_randeng(workdir: Path, card):
         raise AssertionError("randeng: " + "; ".join(failures))
 
 
+# -- phases 15-16 ----------------------------------------------------------
+
+#: phase 15: pretrain_randeng_t5_char_700M.sh's flags, cut to PT_STEPS
+#: steps (its warmup of 10000 to PT_WARMUP, its checkpoint interval of
+#: 5000 to PT_STEPS: one checkpoint); its mesh flags at 1, one card
+PT_STEPS, PT_BATCH, PT_SEQ, PT_WARMUP, PT_VAL = 20, 8, 512, 2, 16
+#: text records: a quarter of LCSTS's text length (80-128 characters),
+#: the rest long enough to fill the 512 encoder tokens (568 raw tokens
+#: before corruption), so batches are full and some rows padded
+PT_SHORT, PT_LONG = (80, 129), (600, 1200)
+#: the span-corruption sentinels the char-level T5Tokenizer appends
+N_SENTINELS = 118
+#: free device memory and disk under TMPDIR each phase needs: phase 15
+#: keeps one 9.4 GB checkpoint of 784M parameters (fp32 weights and both
+#: AdamW moments) at a time
+PT_MIN_FREE_GIB, PT_MIN_DISK_GIB = 60, 12
+#: the CMRC shell's batch (the largest batch the card's memory takes
+#: when 32 does not fit), steps cut from 100000 (and its checkpoint
+#: interval to them), lengths; test rows decoded with its beam 4
+QA_BATCH, QA_STEPS, QA_SEQ, QA_TARGET, QA_TEST = 32, 10, 512, 64, 16
+#: the share of the card's memory a reckoned batch is planned to fill,
+#: and the batches of the memory probe's two measured steps
+MEM_SHARE, PROBE_ROWS = 0.85, (4, 8)
+#: phase 16: the JAX package's default geometries, full depth; the
+#: shells' batches, lengths and learning rates, steps cut from 100000,
+#: warmup from 1000 to PT_WARMUP; their checkpoint interval of 5000
+#: steps, so the fits write none
+BART_PARAMS, PEG_PARAMS, DLM_PARAMS = 139_470_681, 568_796_007, 362_510_592
+BART_STEPS, BART_BATCH, BART_SEQ = 20, 16, 512
+QG_STEPS, QG_BATCH, QG_SEQ, QG_TARGET = 10, 32, 512, 64
+PEG_STEPS, PEG_BATCH, PEG_SEQ, PEG_TARGET = 10, 32, 512, 128
+DLM_STEPS, DLM_BATCH, DLM_LEN = 10, 16, 256
+#: rows and new tokens of DeltaLM's cached greedy decode
+DLM_TF_ROWS, DLM_NEW = 8, 64
+FAM_MIN_FREE_GIB, FAM_MIN_DISK_GIB = 50, 4
+
+
+class PretrainTokenizer:
+    """A character tokenizer with the surface the pretraining examples
+    read (the card's machine has no Randeng vocabulary, no
+    ``transformers`` and no ``jieba``): the specials ``[PAD] [EOS] [UNK]
+    [CLS] [SEP] [MASK] <ans>`` at ids 0-6 (pad and eos where the
+    family's config puts them), then the phase's characters, and
+    N_SENTINELS ascending ``<extra_id_i>`` at the top of the
+    ``vocab_size`` ids, as the char-level T5Tokenizer appends them.
+    Specials and sentinels encode as one token each."""
+
+    SPECIALS = ("[PAD]", "[EOS]", "[UNK]", "[CLS]", "[SEP]", "[MASK]",
+                "<ans>")
+    _SPLIT = re.compile(r"(\[[A-Z]+\]|<ans>|<extra_id_\d+>)")
+    sep_token, mask_token = "[SEP]", "[MASK]"
+
+    def __init__(self, chars: str, vocab_size: int, pad: int = 0,
+                 eos: int = 1):
+        order = [None] * len(self.SPECIALS)
+        order[pad], order[eos] = "[PAD]", "[EOS]"
+        rest = iter(s for s in self.SPECIALS if s not in ("[PAD]", "[EOS]"))
+        order = [s if s is not None else next(rest) for s in order]
+        self.vocab = {t: i for i, t in enumerate(order)}
+        self.vocab.update({c: i + len(order) for i, c in enumerate(chars)})
+        first = vocab_size - N_SENTINELS
+        self.sentinel_token_ids = list(range(first, vocab_size))
+        self.vocab.update({f"<extra_id_{i}>": first + i
+                           for i in range(N_SENTINELS)})
+        self.tokens = {i: t for t, i in self.vocab.items()}
+        self.vocab_size = vocab_size
+        (self.pad_token_id, self.eos_token_id, self.unk_token_id,
+         self.cls_token_id, self.sep_token_id, self.mask_token_id) = (
+            self.vocab[t] for t in self.SPECIALS[:6])
+
+    def __len__(self) -> int:
+        return self.vocab_size
+
+    def get_vocab(self) -> dict:
+        return dict(self.vocab)
+
+    def encode(self, text, add_special_tokens=True):
+        del add_special_tokens
+        ids = []
+        for part in self._SPLIT.split(text):
+            if part in self.vocab:
+                ids.append(self.vocab[part])
+            else:
+                ids.extend(self.vocab.get(c, self.unk_token_id)
+                           for c in part)
+        return ids
+
+    def batch_decode(self, rows, skip_special_tokens=False):
+        return ["".join(self.tokens.get(int(i), "") for i in row
+                        if not (skip_special_tokens and
+                                int(i) < len(self.SPECIALS)))
+                for row in rows]
+
+
+def two_char_words(text: str) -> list:
+    """The word segmenter handed to ``BartDataset`` (the card's machine
+    has no ``jieba``): two characters a word, most Chinese words'
+    length."""
+    return [text[i:i + 2] for i in range(0, len(text), 2)]
+
+
+def check_room(phase: str, workdir: Path, min_free_gib: float,
+               min_disk_gib: float) -> tuple:
+    """``(free device GiB, free disk GiB under workdir)``; raises when
+    either is short of what the phase needs."""
+    import shutil
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0] / 2**30
+    disk = shutil.disk_usage(workdir).free / 2**30
+    if free < min_free_gib or disk < min_disk_gib:
+        raise AssertionError(
+            f"{phase}: {free:.1f} GiB of device memory and {disk:.1f} GiB "
+            f"of disk free under {workdir}; the phase needs "
+            f"{min_free_gib} and {min_disk_gib}")
+    return free, disk
+
+
+def sentinels_in_order(batch: dict, sentinels) -> bool:
+    """Each row's labels hold its input's sentinels, the first ones in
+    ascending order (the span-corruption contract)."""
+    ids = set(int(s) for s in sentinels)
+    for inp, lab in zip(batch["input_ids"], batch["labels"]):
+        a = [int(t) for t in inp if int(t) in ids]
+        b = [int(t) for t in lab if int(t) in ids]
+        if a != b or a != [int(s) for s in sentinels[:len(a)]]:
+            return False
+    return True
+
+
+def shifted_sentinels(batch: dict, sentinels) -> dict:
+    """The planted fault: every sentinel of the labels replaced by the
+    next one."""
+    import numpy as np
+    nxt = {int(a): int(b) for a, b in zip(sentinels[:-1], sentinels[1:])}
+    labels = np.array(batch["labels"])
+    for (r, c), t in np.ndenumerate(labels):
+        if int(t) in nxt:
+            labels[r, c] = nxt[int(t)]
+    return dict(batch, labels=labels)
+
+
+def count_params(model_cls, cfg) -> int:
+    import torch
+    with torch.device("meta"):
+        return sum(p.numel() for p in model_cls(cfg, device="meta")
+                   .parameters())
+
+
+def reckon_batch(module, collate, want: int) -> dict:
+    """The largest batch up to ``want`` that the card's memory takes,
+    planned to fill MEM_SHARE of it. A training step's peak is the
+    larger of its backward's (weights, gradients, AdamW's moments and
+    the activations, which grow with the rows) and its optimizer
+    step's (weights, gradients, moments and AdamW's temporaries). One
+    step (forward with dropout, backward, AdamW) at one row of
+    ``collate(rows)`` makes the moments; steps at each of PROBE_ROWS
+    rows then give the backward peak's slope per row and intercept, and
+    the optimizer step's peak. The probe model is the caller's, at the
+    fit's geometry."""
+    import torch
+    from fengshen_tpu_torch.ops.dropout import step_generator
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    model = module.model
+    optimizer, _ = module.configure_optimizers(10, model)
+    backward, opt_peak = {}, 0
+    for rows in (1,) + PROBE_ROWS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = {k: torch.as_tensor(v).to("cuda")
+                 for k, v in collate(rows).items()}
+
+        def forward_backward():
+            module.set_dropout_generator(step_generator(0, rows))
+            loss, _ = module.training_loss(batch)
+            loss.backward()
+            module.set_dropout_generator(None)
+
+        backward[rows] = peak_of(forward_backward)
+        opt_peak = max(opt_peak, peak_of(optimizer.step))
+        optimizer.zero_grad(set_to_none=True)
+        del batch
+    del optimizer
+    lo, hi = PROBE_ROWS
+    slope = max((backward[hi] - backward[lo]) / (hi - lo), 1.0)
+    intercept = backward[lo] - lo * slope
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits = int((MEM_SHARE * total - intercept) // slope)
+    if opt_peak > MEM_SHARE * total:
+        fits = 0
+    rows = max(1, min(want, fits))
+    return {"batch": rows, "want": want, "cut": rows < want,
+            "per_row_gib": slope / 2**30, "intercept_gib": intercept / 2**30,
+            "backward_peaks_gib": {r: v / 2**30 for r, v in
+                                   backward.items()},
+            "optimizer_peak_gib": opt_peak / 2**30,
+            "planned_peak_gib": max(intercept + rows * slope,
+                                    opt_peak) / 2**30,
+            "card_gib": total / 2**30}
+
+
+def fit_report(trainer, tokens_per_step: int, skip=()) -> dict:
+    """Step time (median and range of steps 2 on, but ``skip``),
+    tokens/s, MFU by the module's ``flops_per_token``, peak memory since
+    the last reset, losses."""
+    import numpy as np
+    import torch
+    steps = [e for e in trainer.history if "loss" in e and
+             "step_time_s" in e]
+    times = sorted(e["step_time_s"] for e in steps
+                   if e["step"] >= 2 and e["step"] not in skip)
+    median = times[len(times) // 2]
+    fpt = steps[-1]["flops_per_token"]
+    losses = [e["loss"] for e in steps]
+    return {"steps": len(steps), "step1_s": steps[0]["step_time_s"],
+            "step_time_s_median": median,
+            "step_time_s_range": [times[0], times[-1]],
+            "tokens_per_step": tokens_per_step,
+            "tokens_per_s": tokens_per_step / median,
+            "flops_per_token": fpt,
+            "mfu": fpt * tokens_per_step / median / BF16_FLOPS,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30,
+            "losses": losses,
+            "losses_finite": bool(np.isfinite(losses).all())}
+
+
+def run_fit(main_fn, argv, **kw):
+    """``main_fn(argv, **kw)`` from a clean allocator, peak memory reset;
+    returns ``(trainer, seconds)``."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = main_fn(argv, **kw)
+    torch.cuda.synchronize()
+    return trainer, time.perf_counter() - t0
+
+
+def fit_argv(workdir: Path, name: str, steps: int, batch: int, lr: float,
+             extra=()) -> list:
+    """The shells' shared flags with this phase's cuts: ``steps`` steps,
+    warmup PT_WARMUP, one log line a step, seed 1234, bf16 on the card."""
+    return [str(x) for x in (
+        "--default_root_dir", workdir / name / "runs", "--save_ckpt_path",
+        workdir / name / "ckpt", "--load_ckpt_path", workdir / name / "ckpt",
+        "--train_batchsize", batch, "--max_steps", steps,
+        "--learning_rate", lr, "--warmup_steps", PT_WARMUP,
+        "--precision", "bf16", "--log_every_n_steps", 1, "--seed", 1234,
+        "--device", "cuda", *extra)]
+
+
+def bf16_bar(model, batch: dict) -> tuple:
+    """``(rel L2 of the bf16 logits from fp32 compute, the same with the
+    encoder padding mask dropped)`` on ``batch``."""
+    import torch
+
+    def logits(dtype, mask=True):
+        before, model.config.dtype = model.config.dtype, dtype
+        try:
+            with torch.no_grad():
+                return model(batch["input_ids"], batch["decoder_input_ids"],
+                             attention_mask=batch["attention_mask"]
+                             if mask else None).float()
+        finally:
+            model.config.dtype = before
+
+    want = logits("float32")
+    rel = ((logits("bfloat16") - want).norm() / want.norm()).item()
+    fault = ((logits("bfloat16", mask=False) - want).norm() /
+             want.norm()).item()
+    return rel, fault
+
+
+def phase_randeng_pretrain(workdir: Path, card):
+    """``pretrain_t5.main`` with the flags of
+    ``pretrain_randeng_t5_char_700M.sh`` on Randeng-T5-784M
+    (``configs/randeng_t5_784m.json``: all 24 + 24 layers, 784,108,544
+    parameters checked first; fp32 weights made on the card from a seed,
+    bf16 compute, dropout 0.1) over text records made from a seed:
+    PT_STEPS steps of 8 x (512 + 114) span-corruption tokens, one
+    checkpoint; every batch's labels must hold its input's sentinels in
+    order (labels with their sentinels shifted by one must fail that).
+    ``--do_eval_only`` restores the step and runs one validation sweep,
+    no step. On those weights the bf16 forward is held to fp32 compute
+    on the validation rows with the most padding (the encoder mask
+    dropped must break the bar). Then ``finetune_t5_cmrc.main`` with the
+    CMRC shell's flags at the same geometry (its batch of 32, or the
+    largest that fits, reckoned first): QA_STEPS steps and one
+    checkpoint, then ``--do_eval_only`` writes its beam-4 predictions.
+    K1-K4 launch 0 times."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from fengshen_tpu_torch.data.t5_dataloader import (
+        T5SpanCorruptionCollator, compute_input_and_target_lengths)
+    from fengshen_tpu_torch.examples.pretrain_t5 import pretrain_t5
+    from fengshen_tpu_torch.examples.qa_t5 import finetune_t5_cmrc as qa
+    from fengshen_tpu_torch.models.t5 import (T5Config,
+                                              T5ForConditionalGeneration)
+    from fengshen_tpu_torch.ops.kernels import reset_launch_counts
+
+    free, disk = check_room("randeng_pretrain", workdir, PT_MIN_FREE_GIB,
+                            PT_MIN_DISK_GIB)
+    t_phase = time.perf_counter()
+    failures = []
+    reset_launch_counts()
+    raw = json.loads(RANDENG_CONFIG.read_text())
+    cfg = T5Config.from_pretrained(str(RANDENG_CONFIG))
+    n_params = count_params(T5ForConditionalGeneration, cfg)
+    if n_params != RD_PARAMS or (cfg.num_layers, cfg.num_decoder_layers) \
+            != (24, 24):
+        raise AssertionError(f"randeng_pretrain: {n_params} parameters, "
+                             f"{cfg.num_layers} + {cfg.num_decoder_layers} "
+                             f"layers (want {RD_PARAMS}, 24 + 24)")
+    _, targets = compute_input_and_target_lengths(PT_SEQ, 0.15, 3.0)
+    model_dir = config_dir(workdir / "randeng_t5", raw)
+    rng = np.random.RandomState(15)
+    chars = "".join(chr(0x4E00 + i) for i in range(RD_CHARS))
+    tok = PretrainTokenizer(chars, cfg.vocab_size, cfg.pad_token_id,
+                            cfg.eos_token_id)
+    pool = list(chars)
+
+    def texts(n):
+        return ["".join(rng.choice(pool, rng.randint(
+            *(PT_SHORT if rng.rand() < 0.25 else PT_LONG))))
+            for _ in range(n)]
+
+    train = write_jsonl(workdir / "pt_train.json",
+                        [{"text": t} for t in texts(PT_STEPS * PT_BATCH)])
+    val_rows = [{"text": t} for t in texts(PT_VAL)]
+    val = write_jsonl(workdir / "pt_val.json", val_rows)
+    cuts = {"max_steps": [100000, PT_STEPS], "warmup_steps":
+            [10000, PT_WARMUP], "every_n_train_steps": [5000, PT_STEPS],
+            "fsdp_parallel_size": [8, 1]}
+    argv = [str(x) for x in (
+        "--tokenizer_type", "bert_tokenizer", "--model_path", model_dir,
+        "--train_file", train, "--val_file", val, "--val_batchsize",
+        PT_BATCH, "--max_seq_length", PT_SEQ, "--min_learning_rate", 1e-5,
+        "--every_n_train_steps", PT_STEPS, "--tensor_model_parallel_size",
+        1, "--fsdp_parallel_size", 1, "--profile_steps",
+        ",".join(map(str, RD_PROFILE)))]
+    argv += fit_argv(workdir, "pt", PT_STEPS, PT_BATCH, 1e-4)
+
+    # 1. the shell's pretraining, each batch's sentinels checked
+    seen = {"batches": 0, "out_of_order": 0}
+    real_call = T5SpanCorruptionCollator.__call__
+
+    def checked(self, samples):
+        batch = real_call(self, samples)
+        seen["batches"] += 1
+        seen["out_of_order"] += not sentinels_in_order(batch,
+                                                       self.sentinels)
+        return batch
+
+    with patched(T5SpanCorruptionCollator, "__call__", checked):
+        trainer, fit_s = run_fit(pretrain_t5.main, argv, tokenizer=tok)
+    profiled = set(range(RD_PROFILE[0] + 1, RD_PROFILE[1] + 1))
+    report = fit_report(trainer, PT_BATCH * (PT_SEQ + targets),
+                        profiled | {RD_PROFILE[1] + 1})
+    profile = step_profile(trainer, profiled)
+    losses = report["losses"]
+    accs = [e["acc"] for e in trainer.history if "acc" in e and
+            "step_time_s" in e]
+    io = dict(next(c for c in trainer.callbacks if hasattr(c, "stats"))
+              .stats)
+    fit_vals = [e for e in trainer.history if "val_loss" in e]
+    if len(losses) != PT_STEPS or not report["losses_finite"] or \
+            not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        failures.append(f"pretraining losses {losses}")
+    if seen["out_of_order"] or seen["batches"] < PT_STEPS:
+        failures.append(f"sentinel check: {seen}")
+    if io["saves"] != 1:
+        failures.append(f"{io['saves']} checkpoints (want 1)")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. --do_eval_only: the restored step, one validation sweep, no step
+    eval_argv = argv[:argv.index("--profile_steps")] + \
+        argv[argv.index("--profile_steps") + 2:] + ["--do_eval_only"]
+    with patched(T5SpanCorruptionCollator, "__call__", checked):
+        ev, eval_s = run_fit(pretrain_t5.main, eval_argv, tokenizer=tok)
+    ev_vals = [e for e in ev.history if "val_loss" in e]
+    ev_steps = [e for e in ev.history if "loss" in e]
+    if ev.global_step != PT_STEPS or len(ev_vals) != 1 or ev_steps or \
+            not np.isfinite(ev_vals[0]["val_loss"]):
+        failures.append(f"--do_eval_only: step {ev.global_step}, "
+                        f"validations {ev_vals}, steps {len(ev_steps)}")
+    eval_io = next(c for c in ev.callbacks if hasattr(c, "stats")).stats
+    model = ev.state.model
+    model.requires_grad_(False)
+
+    # 3. bf16 against fp32 on the most padded validation rows; the
+    # sentinel check against shifted sentinels
+    collated = T5SpanCorruptionCollator(tok, max_seq_length=PT_SEQ,
+                                        seed=15)(val_rows)
+    rows = np.argsort(collated["attention_mask"].sum(1),
+                      kind="stable")[:PT_BATCH]
+    batch = {k: torch.as_tensor(v[rows]).to("cuda")
+             for k, v in collated.items()}
+    pad_share = 1.0 - batch["attention_mask"].float().mean().item()
+    rel, rel_fault = bf16_bar(model, batch)
+    if rel > RD_BF16_RTOL or rel_fault <= RD_BF16_RTOL or pad_share == 0:
+        failures.append(f"bf16 vs fp32 logits rel L2 {rel} (limit "
+                        f"{RD_BF16_RTOL}); encoder mask dropped "
+                        f"{rel_fault}; pad share {pad_share}")
+    shifted_caught = sentinels_in_order(collated, tok.sentinel_token_ids) \
+        and not sentinels_in_order(
+            shifted_sentinels(collated, tok.sentinel_token_ids),
+            tok.sentinel_token_ids)
+    if not shifted_caught:
+        failures.append("the sentinel check passed shifted sentinels")
+    del model, ev, batch
+    shutil.rmtree(workdir / "pt" / "ckpt")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the CMRC QA fine-tune at the same geometry, its batch reckoned
+    def qa_records(n):
+        out = []
+        for _ in range(n):
+            context = "".join(rng.choice(pool, rng.randint(400, 600)))
+            s = rng.randint(0, len(context) - 10)
+            out.append({"question": "".join(rng.choice(pool,
+                                                       rng.randint(8, 20))),
+                        "context": context,
+                        "answer": context[s:s + rng.randint(2, 10)]})
+        return out
+
+    qa_cuts = ["--max_seq_length", str(QA_SEQ), "--max_target_length",
+               str(QA_TARGET)]
+    qa_args = qa.parse_args(qa_cuts + ["--model_path", str(model_dir)])
+    probe_records = qa_records(max(PROBE_ROWS))
+    probe_model = T5ForConditionalGeneration(
+        cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(15))
+    plan = reckon_batch(
+        qa.T5QAModule(qa_args, probe_model, cfg),
+        lambda n: qa.T5QACollator(
+            tok, max_src_length=QA_SEQ, max_tgt_length=QA_TARGET,
+            decoder_start_token_id=cfg.decoder_start_token_id)(
+                probe_records[:n]), QA_BATCH)
+    del probe_model
+    qa_batch = plan["batch"]
+    qa_train = write_jsonl(workdir / "qa_train.json",
+                           qa_records(QA_STEPS * qa_batch))
+    qa_test = write_jsonl(workdir / "qa_test.json", qa_records(QA_TEST))
+    qa_argv = qa_cuts + [str(x) for x in (
+        "--model_path", model_dir, "--train_file", qa_train, "--test_file",
+        qa_test, "--test_batchsize", QA_TEST, "--every_n_train_steps",
+        QA_STEPS)] + fit_argv(workdir, "qa", QA_STEPS, qa_batch, 1e-4)
+    qa_trainer, qa_fit_s = run_fit(qa.main, qa_argv, tokenizer=tok)
+    qa_report = fit_report(qa_trainer, qa_batch * (QA_SEQ + QA_TARGET))
+    del qa_trainer
+    pred_path = workdir / "qa_predictions.txt"
+    qa_eval, qa_pred_s = run_fit(qa.main, qa_argv + [
+        "--do_eval_only", "--prediction_res_path", str(pred_path)],
+        tokenizer=tok)
+    pred_lines = pred_path.read_text().splitlines()
+    if len(qa_report["losses"]) != QA_STEPS or \
+            not qa_report["losses_finite"] or \
+            qa_eval.global_step != QA_STEPS or len(pred_lines) != QA_TEST:
+        failures.append(f"qa: losses {qa_report['losses']}, restored step "
+                        f"{qa_eval.global_step}, {len(pred_lines)} "
+                        f"predictions (want {QA_TEST})")
+    del qa_eval
+    shutil.rmtree(workdir / "qa" / "ckpt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = kernel_launches()
+    if any(launches.values()):
+        failures.append(f"kernel launches on the pretraining path: "
+                        f"{launches}")
+    say("randeng_pretrain", card=card, config=RANDENG_CONFIG.name,
+        n_params=n_params, layers=[cfg.num_layers, cfg.num_decoder_layers],
+        cuts=cuts, batch=PT_BATCH, enc_len=PT_SEQ, dec_len=targets,
+        device_free_gib=free, disk_free_gib=disk, fit_s=fit_s, **report,
+        acc=accs, fit_validation=fit_vals, profile=profile,
+        sentinel_check=seen, shifted_sentinels_caught=shifted_caught,
+        eval_only_s=eval_s, eval_only_validation=ev_vals,
+        bf16_vs_fp32_rel_l2=rel, encoder_mask_dropped_rel_l2=rel_fault,
+        bf16_rtol=RD_BF16_RTOL, bf16_rows_pad_share=pad_share,
+        ckpt_saves=io["saves"], ckpt_gib_written=io["bytes_written"] / 2**30,
+        ckpt_write_gib_per_s=io["bytes_written"] / 2**30 /
+        max(io["save_s"], 1e-9),
+        ckpt_gib_read=eval_io["bytes_read"] / 2**30,
+        ckpt_read_gib_per_s=eval_io["bytes_read"] / 2**30 /
+        max(eval_io["restore_s"], 1e-9),
+        kernel_launches=launches, phase_s=time.perf_counter() - t_phase)
+    say("randeng_qa", card=card, shell_batch=QA_BATCH, memory_plan=plan,
+        batch=qa_batch, enc_len=QA_SEQ, dec_len=QA_TARGET, fit_s=qa_fit_s,
+        **qa_report, predict_s=qa_pred_s, predictions=len(pred_lines),
+        first_prediction=pred_lines[0] if pred_lines else None)
+    if failures:
+        raise AssertionError("randeng_pretrain: " + "; ".join(failures))
+
+
+def phase_seq2seq_families(workdir: Path, card):
+    """The other families at the JAX package's default geometries and
+    full depth, through their examples' ``main`` with the shells' flags
+    on records made from a seed, fp32 weights made on the card from a
+    seed, bf16 compute: ``pretrain_bart.main`` at ``BartConfig()`` (6 +
+    6 layers of 768, 139,470,681 parameters) over an
+    ``MMapIndexedDataset`` the phase writes with the port's builder,
+    BART_STEPS steps of 16 x 512; ``finetune_bart.main`` on the weights
+    that fit leaves (exported HF-named), ``--mask_ans_style anstoken``,
+    QG_STEPS steps; ``pretrain_pegasus.main`` at ``PegasusConfig()`` (16
+    + 16 of 1024, 568,796,007), ``--gsg_ratio 0.25``, its batch of 32 or
+    the largest that fits; ``finetune_deltalm.main`` at
+    ``DeltaLMConfig()`` (12 + 6 of 768, 362,510,592), 16 x (256 + 256),
+    ``--label_smooth 0.1``, then DLM_TF_ROWS rows of cached greedy
+    decode each token within TF_MARGIN, or RD_TIE_ULPS bf16 ulps, of one
+    uncached forward's argmax. K1-K4 launch 0 times."""
+    import numpy as np
+    import torch
+    from fengshen_tpu_torch.data.megatron_dataloader import \
+        MMapIndexedDatasetBuilder
+    from fengshen_tpu_torch.examples.finetune_bart_qg import finetune_bart
+    from fengshen_tpu_torch.examples.pegasus import pretrain_pegasus
+    from fengshen_tpu_torch.examples.summary.seq2seq_summary import \
+        common_parser
+    from fengshen_tpu_torch.examples.pretrain_randeng_bart import \
+        pretrain_bart
+    from fengshen_tpu_torch.examples.translate import finetune_deltalm
+    from fengshen_tpu_torch.models.bart import (BartConfig,
+                                                BartForConditionalGeneration)
+    from fengshen_tpu_torch.models.bart import convert as bart_convert
+    from fengshen_tpu_torch.models.deltalm import (
+        DeltaLMConfig, DeltaLMForConditionalGeneration)
+    from fengshen_tpu_torch.models.pegasus import (
+        PegasusConfig, PegasusForConditionalGeneration)
+    from fengshen_tpu_torch.ops.kernels import reset_launch_counts
+    from fengshen_tpu_torch.utils.generate import seq2seq_generate
+
+    free, disk = check_room("seq2seq_families", workdir, FAM_MIN_FREE_GIB,
+                            FAM_MIN_DISK_GIB)
+    t_phase = time.perf_counter()
+    failures, out = [], {}
+    reset_launch_counts()
+    rng = np.random.RandomState(16)
+    chars = "".join(chr(0x4E00 + i) for i in range(RD_CHARS))
+    pool = list(chars)
+
+    def sentence(lo=15, hi=40):
+        return "".join(rng.choice(pool, rng.randint(lo, hi))) + \
+            rng.choice(list("。！？；"))
+
+    geometry = {}
+    for name, cls, cfg, want in (
+            ("bart", BartForConditionalGeneration, BartConfig(),
+             BART_PARAMS),
+            ("pegasus", PegasusForConditionalGeneration, PegasusConfig(),
+             PEG_PARAMS),
+            ("deltalm", DeltaLMForConditionalGeneration, DeltaLMConfig(),
+             DLM_PARAMS)):
+        n = count_params(cls, cfg)
+        geometry[name] = {"n_params": n, "layers": [cfg.encoder_layers,
+                                                    cfg.decoder_layers],
+                          "d_model": cfg.d_model}
+        if n != want:
+            raise AssertionError(f"seq2seq_families: {name} has {n} "
+                                 f"parameters (want {want})")
+
+    # BART text infilling over an indexed corpus, then QG on its weights
+    bcfg = BartConfig()
+    btok = PretrainTokenizer(chars, bcfg.vocab_size, bcfg.pad_token_id,
+                             bcfg.eos_token_id)
+    bart_dir = workdir / "bart"
+    bcfg.save_pretrained(str(bart_dir))
+    builder = MMapIndexedDatasetBuilder(str(workdir / "bart_corpus"))
+    for _ in range(BART_STEPS * BART_BATCH):
+        for _ in range(rng.randint(12, 24)):
+            builder.add_item(btok.encode(sentence()) + [btok.sep_token_id])
+        builder.end_document()
+    builder.finalize()
+    argv = ["--model_path", str(bart_dir), "--data_prefix",
+            str(workdir / "bart_corpus"), "--max_seq_length", str(BART_SEQ),
+            "--every_n_train_steps", "5000"] + \
+        fit_argv(workdir, "bart", BART_STEPS, BART_BATCH, 2e-5)
+    trainer, fit_s = run_fit(pretrain_bart.main, argv, tokenizer=btok,
+                             zh_tokenizer=two_char_words)
+    out["bart"] = dict(fit_report(trainer, BART_BATCH * 2 * BART_SEQ),
+                       fit_s=fit_s, batch=BART_BATCH, lengths=[BART_SEQ,
+                                                               BART_SEQ])
+    qg_dir = workdir / "bart_qg"
+    bcfg.save_pretrained(str(qg_dir))
+    write_safetensors(qg_dir / "model.safetensors",
+                      bart_convert.params_to_torch_state(
+                          trainer.state.model.state_dict(), bcfg))
+    del trainer
+    qg_rows = []
+    for _ in range(QG_STEPS * QG_BATCH):
+        context = "".join(sentence() for _ in range(rng.randint(8, 14)))
+        s = rng.randint(0, len(context) - 10)
+        k = rng.randint(2, 9)
+        qg_rows.append({"context": context, "answer": context[s:s + k],
+                        "ans_span": [[s, s + k]],
+                        "question": sentence(8, 24)})
+    argv = ["--model_path", str(qg_dir), "--train_file",
+            str(write_jsonl(workdir / "qg.json", qg_rows)),
+            "--mask_ans_style", "anstoken", "--every_n_train_steps",
+            "5000"] + fit_argv(workdir, "qg", QG_STEPS, QG_BATCH, 1e-4)
+    trainer, fit_s = run_fit(finetune_bart.main, argv, tokenizer=btok)
+    out["bart_qg"] = dict(fit_report(trainer, QG_BATCH * (QG_SEQ +
+                                                          QG_TARGET)),
+                          fit_s=fit_s, batch=QG_BATCH,
+                          lengths=[QG_SEQ, QG_TARGET])
+    del trainer
+
+    # Pegasus gap sentences, the batch reckoned
+    pcfg = PegasusConfig()
+    ptok = PretrainTokenizer(chars, pcfg.vocab_size, pcfg.pad_token_id,
+                             pcfg.eos_token_id)
+    peg_dir = workdir / "pegasus"
+    pcfg.save_pretrained(str(peg_dir))
+
+    def documents(n):
+        return [{"text": "".join(sentence() for _ in range(
+            rng.randint(14, 30)))} for _ in range(n)]
+
+    peg_args = pretrain_pegasus.PegasusPretrainModule.\
+        add_module_specific_args(common_parser()).parse_args(
+            ["--max_seq_length", str(PEG_SEQ)])
+    probe_docs = documents(max(PROBE_ROWS))
+    probe_model = PegasusForConditionalGeneration(
+        pcfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(16))
+    plan = reckon_batch(
+        pretrain_pegasus.PegasusPretrainModule(peg_args, probe_model, pcfg),
+        lambda n: pretrain_pegasus.PegasusGSGCollator(
+            ptok, max_src_length=PEG_SEQ, max_tgt_length=PEG_TARGET,
+            decoder_start_token_id=ptok.pad_token_id)(probe_docs[:n]),
+        PEG_BATCH)
+    del probe_model
+    peg_batch = plan["batch"]
+    argv = ["--model_path", str(peg_dir), "--train_file",
+            str(write_jsonl(workdir / "peg.json",
+                            documents(PEG_STEPS * peg_batch))),
+            "--max_seq_length", str(PEG_SEQ), "--gsg_ratio", "0.25",
+            "--every_n_train_steps", "5000"] + \
+        fit_argv(workdir, "pegasus", PEG_STEPS, peg_batch, 1e-4)
+    trainer, fit_s = run_fit(pretrain_pegasus.main, argv, tokenizer=ptok)
+    out["pegasus"] = dict(fit_report(trainer, peg_batch * (PEG_SEQ +
+                                                           PEG_TARGET)),
+                          fit_s=fit_s, batch=peg_batch, shell_batch=PEG_BATCH,
+                          memory_plan=plan, lengths=[PEG_SEQ, PEG_TARGET])
+    del trainer
+
+    # DeltaLM translation, then cached greedy decode
+    dcfg = DeltaLMConfig()
+    dtok = PretrainTokenizer(chars, dcfg.vocab_size, dcfg.pad_token_id,
+                             dcfg.eos_token_id)
+    dlm_dir = workdir / "deltalm"
+    dcfg.save_pretrained(str(dlm_dir))
+    pairs = [{"src": "".join(sentence() for _ in range(rng.randint(3, 12))),
+              "tgt": "".join(sentence() for _ in range(rng.randint(3, 12)))}
+             for _ in range(DLM_STEPS * DLM_BATCH)]
+    argv = ["--model_path", str(dlm_dir), "--train_file",
+            str(write_jsonl(workdir / "dlm.json", pairs)),
+            "--max_enc_length", str(DLM_LEN), "--max_dec_length",
+            str(DLM_LEN), "--label_smooth", "0.1", "--every_n_train_steps",
+            "5000"] + fit_argv(workdir, "deltalm", DLM_STEPS, DLM_BATCH, 1e-4)
+    trainer, fit_s = run_fit(finetune_deltalm.main, argv, tokenizer=dtok)
+    out["deltalm"] = dict(fit_report(trainer, DLM_BATCH * 2 * DLM_LEN),
+                          fit_s=fit_s, batch=DLM_BATCH,
+                          lengths=[DLM_LEN, DLM_LEN])
+    model = trainer.state.model
+    model.requires_grad_(False)
+    del trainer
+    batch = finetune_deltalm.TranslationCollator(
+        dtok, max_src_length=DLM_LEN, max_tgt_length=DLM_LEN)(
+        pairs[:DLM_TF_ROWS])
+    ids = torch.as_tensor(batch["input_ids"]).to("cuda")
+    mask = torch.as_tensor(batch["attention_mask"]).to("cuda")
+    t0 = time.perf_counter()
+    greedy = seq2seq_generate(
+        model, ids, mask, max_new_tokens=DLM_NEW,
+        decoder_start_token_id=dcfg.decoder_start_token_id,
+        eos_token_id=dcfg.eos_token_id, pad_token_id=dcfg.pad_token_id,
+        device="cuda")
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DLM_NEW
+    with torch.no_grad():
+        pred = model(ids, greedy[:, :-1], attention_mask=mask).float()
+    worst_gap = worst_ulps = 0.0
+    exact = total = 0
+    for b in range(DLM_TF_ROWS):
+        row = greedy[b, 1:].tolist()
+        t = row.index(dcfg.eos_token_id) + 1 if dcfg.eos_token_id in row \
+            else DLM_NEW
+        top = pred[b, :t].max(-1).values
+        gap = top - pred[b, :t].gather(1, greedy[b, 1:t + 1, None])[:, 0]
+        ulp = torch.exp2(torch.floor(torch.log2(top.abs())) - 7)
+        worst_gap = max(worst_gap, gap.max().item())
+        worst_ulps = max(worst_ulps, (gap / ulp).max().item())
+        bad = (gap > TF_MARGIN) & (gap > RD_TIE_ULPS * ulp)
+        if bad.any():
+            failures.append(f"deltalm cached greedy row {b}: a token "
+                            f"{gap[bad].max().item()} below the uncached "
+                            "argmax")
+        exact += int((gap == 0).sum())
+        total += t
+    out["deltalm"].update(tf_rows=DLM_TF_ROWS, tf_tokens=total,
+                          tf_exact_argmax=exact, tf_worst_gap=worst_gap,
+                          tf_worst_gap_ulps=worst_ulps,
+                          greedy_decode_ms_per_step=decode_ms)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, (steps, rep) in {k: (s, out[k]) for k, s in (
+            ("bart", BART_STEPS), ("bart_qg", QG_STEPS),
+            ("pegasus", PEG_STEPS), ("deltalm", DLM_STEPS))}.items():
+        if len(rep["losses"]) != steps or not rep["losses_finite"]:
+            failures.append(f"{name} losses {rep['losses']}")
+    launches = kernel_launches()
+    if any(launches.values()):
+        failures.append(f"kernel launches on the families' paths: "
+                        f"{launches}")
+    for name, rep in out.items():
+        say(f"seq2seq_{name}", card=card,
+            geometry=geometry[name.split("_")[0]], **rep)
+    say("seq2seq_families", card=card, device_free_gib=free,
+        disk_free_gib=disk, tf_margin=TF_MARGIN, tie_ulps=RD_TIE_ULPS,
+        kernel_launches=launches, phase_s=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("seq2seq_families: " + "; ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -5046,6 +5809,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_randeng(Path(tmp), card)
         mark("14_randeng")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_randeng_pretrain(Path(tmp), card)
+        mark("15_randeng_pretrain")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_seq2seq_families(Path(tmp), card)
+        mark("16_seq2seq_families")
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     main_row = rows[("paged", 1)]

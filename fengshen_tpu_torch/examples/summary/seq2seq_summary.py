@@ -179,9 +179,14 @@ class Seq2SeqModule(TrainModule):
         return int(np.prod(np.shape(batch["input_ids"]))) + \
             int(np.prod(np.shape(batch["decoder_input_ids"])))
 
+    def sequence_lengths(self) -> tuple:
+        """``(S, T)``: the encoder and decoder lengths of a batch
+        (``--max_src_length``, ``--max_tgt_length``)."""
+        return int(self.args.max_src_length), int(self.args.max_tgt_length)
+
     def flops_per_token(self) -> float:
         """Forward plus backward FLOPs of one sample over its ``S + T``
-        tokens (``--max_src_length``, ``--max_tgt_length``): 6 x the
+        tokens (:meth:`sequence_lengths`): 6 x the
         encoder layers' matrix parameters x S, 6 x (the decoder layers'
         plus the ``d_model x vocab`` head) x T, and attention's 12 x
         width x (encoder layers x S^2 + decoder layers x (T^2 + T x S)),
@@ -189,7 +194,7 @@ class Seq2SeqModule(TrainModule):
         Embedding and position tables and T5's bias tables are left
         out."""
         cfg = self.config
-        src, tgt = int(self.args.max_src_length), int(self.args.max_tgt_length)
+        src, tgt = self.sequence_lengths()
         params = {"encoder": 0, "decoder": 0}
         for name, p in self.model.named_parameters():
             side = _side(name)
@@ -249,19 +254,26 @@ def build_model(model_type: str, model_path=None, config=None,
     return model_cls(config, device=device, init=False), config
 
 
-def build_parser() -> argparse.ArgumentParser:
+def common_parser(description=None) -> argparse.ArgumentParser:
+    """The module, Trainer, data and checkpoint flags of every seq2seq
+    example."""
     from fengshen_tpu_torch.data import UniversalDataModule
     from fengshen_tpu_torch.models.model_utils import add_module_args
     from fengshen_tpu_torch.trainer import add_trainer_args
-    from fengshen_tpu_torch.trainer.modules import add_lora_args
     from fengshen_tpu_torch.utils.universal_checkpoint import (
         UniversalCheckpoint)
 
-    parser = argparse.ArgumentParser()
+    parser = argparse.ArgumentParser(description)
     parser = add_module_args(parser)
     parser = add_trainer_args(parser)
     parser = UniversalDataModule.add_data_specific_args(parser)
-    parser = UniversalCheckpoint.add_argparse_args(parser)
+    return UniversalCheckpoint.add_argparse_args(parser)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from fengshen_tpu_torch.trainer.modules import add_lora_args
+
+    parser = common_parser()
     group = parser.add_argument_group("summary")
     group.add_argument("--model_type", default="t5", type=str,
                        choices=["t5", "bart", "pegasus"])

@@ -5,8 +5,8 @@
 ``fengshen_model_type`` or ``model_type``, :117-122) to the family's
 module, config class and heads, imported on first use (:14-101). The
 families the port has are registered with their heads: ``llama``,
-``ziya_llama``, ``gpt2``, ``megatron-bert``, ``bert``, ``t5``, ``bart``
-and ``pegasus``. A family the
+``ziya_llama``, ``gpt2``, ``megatron-bert``, ``bert``, ``t5``, ``bart``,
+``pegasus`` and ``deltalm``. A family the
 JAX package registers and the port does not have yet raises
 ``NotImplementedError`` naming ROADMAP.md queue 1 item 11; an unknown
 ``model_type`` raises ``KeyError``, as the reference does.
@@ -59,11 +59,15 @@ MODEL_REGISTRY: dict[str, tuple[str, str, dict[str, str]]] = {
     "pegasus": ("fengshen_tpu_torch.models.pegasus", "PegasusConfig",
                 {"conditional_generation":
                      "PegasusForConditionalGeneration"}),
+    "deltalm": ("fengshen_tpu_torch.models.deltalm", "DeltaLMConfig",
+                {"conditional_generation":
+                     "DeltaLMForConditionalGeneration"}),
 }
 
 #: the JAX package's registered families the port does not have yet
 NOT_YET_PORTED = (
-    "roformer", "albert", "deberta-v2", "longformer", "zen", "deltalm", "zen2", "davae", "gavae", "ppvae",
+    "roformer", "albert", "deberta-v2", "longformer", "zen", "zen2",
+    "davae", "gavae", "ppvae",
     "della", "transfo-xl-denoise", "transfo-xl-paraphrase",
     "transfo-xl-reasoning")
 
