@@ -190,7 +190,29 @@ Phases (each raises on failure, so any failure exits non-zero):
    (256 + 256), label smoothing 0.1), then 8 rows of cached greedy
    DeltaLM decode held to one uncached forward. Phases 15-16 check free
    device memory and disk first, launch K1-K4 0 times, and print step
-   time, tokens/s, peak memory and losses per fit.
+   time, tokens/s, peak memory and losses per fit;
+17. MLM pretraining of the Erlangshen encoders: (a) on the card's host,
+   an indexed corpus of 10^6 documents and about 1.1e8 tokens written
+   with the port's builder, the index helpers compiled from
+   ``csrc/index_helpers.cpp`` and timed with ``build_mapping`` (509,
+   short windows 0.1; every window inside its document),
+   ``build_sample_idx`` (512) and ``build_blending_indices`` (0.7 /
+   0.3), the last two bitwise equal to their plain versions; (b)
+   ``pretrain_erlangshen.main`` with ``pretrain_erlangshen_base.sh``'s
+   flags on Erlangshen-MegatronBert-1.3B at all 24 layers, 20 steps of
+   the shell's 32 rows of 512 or the batch the memory probe allows,
+   steps 5-6 profiled, the bf16 MLM logits held to fp32 compute on the
+   trained weights (2e-2) and on the step-0 weights (5e-2; there the
+   padding mask dropped must fail that bar), then two steps on rows of a
+   ``BertDataset`` over (a)'s corpus; (c) ``pretrain_deberta.main`` on
+   Erlangshen-DeBERTa-v2-710M at all 24 layers likewise, its MFU from a
+   FLOP count that counts c2p and p2c as Q K^T; (d) ``pretrain_bert.main``
+   on bert-base-chinese at 32 x 512 with a checkpoint after step 5 and a
+   run resumed from it whose step 6 loss equals the uninterrupted run's.
+   Words are cut two characters a word (no ``jieba`` on the card's
+   machine); parameter counts, free device memory (60 GiB) and disk (3
+   GiB) are checked first; K1-K4 launch 0 times; step time, tokens/s,
+   MFU, peak memory and losses are printed per fit.
 
 Phase 3 also holds K2 (fused LM-head cross-entropy: forward, dx, dK) to
 its plain version at the long-context path's shape (T = 32767 tokens,
@@ -5732,6 +5754,548 @@ def phase_seq2seq_families(workdir: Path, card):
         raise AssertionError("seq2seq_families: " + "; ".join(failures))
 
 
+# -- phase 17 -----------------------------------------------------------
+
+#: MLM pretraining phase (17): the three encoders at their published
+#: geometries and full depth, fp32 weights made on the card from a seed,
+#: bf16 compute (the configs' default), dropout 0.1; their parameter
+#: counts are checked before anything else
+DEBERTA_CONFIG = ROOT / "configs" / "erlangshen_deberta_v2_710m.json"
+BERT_BASE_CONFIG = ROOT / "configs" / "bert_base_chinese.json"
+MB_PARAMS, DEB_PARAMS, BB_PARAMS = 1_261_593_346, 702_786_560, 102_290_312
+#: 17a: an indexed corpus of IDX_DOCS documents of 1-19 sentences of
+#: 1-21 tokens (about 1.0e7 sentences and 1.1e8 tokens, 0.57 GB of
+#: int32 tokens and index), at least IDX_MIN_TOKENS tokens; BERT windows of 512 - 3
+#: tokens with short windows at 0.1, GPT samples of 512, and two
+#: datasets blended 0.7 / 0.3
+IDX_DOCS, IDX_MIN_TOKENS = 1_000_000, 100_000_000
+IDX_SENTS, IDX_SENT_LEN = (1, 20), (1, 22)
+IDX_SEQ, IDX_SHORT, IDX_WEIGHTS = 512, 0.1, (0.7, 0.3)
+#: 17b-17d: steps, length, the shells' batch of 32 rows (cut by the
+#: memory probe where the card does not take it), the checkpoint of 17d
+#: after MLM_CKPT_AT of BB_STEPS steps
+MLM_STEPS, MLM_SEQ, MLM_BATCH = 20, 512, 32
+BB_STEPS, MLM_CKPT_AT = 6, 5
+#: the steps 17b traces (its steps 5 and 6), as phases 12-15 do
+MLM_PROFILE = (4, 6)
+#: text records: sentences of 8-40 characters drawn from MLM_CHARS CJK
+#: characters with Zipf(1.1) frequencies (so the fit has a unigram law
+#: to learn), a quarter of the records 100-300 characters long (padded
+#: rows), the rest 600-900 (full 512-token rows)
+MLM_CHARS, MLM_SENT_LEN, MLM_ZIPF = 3000, (8, 41), 1.1
+MLM_SHORT, MLM_LONG = (100, 301), (600, 901)
+#: free device memory and disk under TMPDIR the phase needs: the corpus
+#: (0.57 GB), a BERT-base checkpoint (1.2 GB of weights and moments)
+MLM_MIN_FREE_GIB, MLM_MIN_DISK_GIB = 60, 3
+
+
+class MLMTokenizer:
+    """A character tokenizer over the whole vocabulary with the surface
+    the MLM collators and datasets read (the card's machine has no
+    Erlangshen vocabulary, no ``transformers`` and no ``jieba``):
+    ``[PAD] [UNK] [CLS] [SEP] [MASK]`` at ids 0-4, the sentence ends
+    ``。！？`` at 5-7, then one CJK character per id up to
+    ``vocab_size``."""
+
+    pad_token_id, unk_token_id, cls_token_id = 0, 1, 2
+    sep_token_id, mask_token_id = 3, 4
+    FIRST_CHAR = 8
+
+    def __init__(self, vocab_size: int):
+        self.tokens = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]",
+                       "。", "！", "？"] + [
+            chr(0x4E00 + i) for i in range(vocab_size - self.FIRST_CHAR)]
+        self.vocab = {t: i for i, t in enumerate(self.tokens)}
+
+    def __len__(self) -> int:
+        return len(self.tokens)
+
+    def get_vocab(self) -> dict:
+        return dict(self.vocab)
+
+    def encode(self, text, add_special_tokens=True):
+        del add_special_tokens
+        return [self.vocab.get(c, self.unk_token_id) for c in text]
+
+
+def mlm_records(n: int, rng) -> list:
+    """``n`` records ``{"text": ...}`` of Zipf-distributed characters in
+    sentences (MLM_* above)."""
+    import numpy as np
+    ranks = np.arange(1, MLM_CHARS + 1)
+    p = ranks ** -MLM_ZIPF
+    p /= p.sum()
+    chars = np.array([chr(0x4E00 + i) for i in range(MLM_CHARS)])
+    out = []
+    for _ in range(n):
+        want = rng.randint(*(MLM_SHORT if rng.rand() < 0.25 else MLM_LONG))
+        text = []
+        while sum(map(len, text)) < want:
+            text.append("".join(chars[rng.choice(
+                MLM_CHARS, rng.randint(*MLM_SENT_LEN), p=p)]) +
+                rng.choice(["。", "！", "？"]))
+        out.append({"text": "".join(text)})
+    return out
+
+
+def mlm_argv(workdir: Path, name: str, model_dir: Path, train: Path,
+             steps: int, batch: int, extra=()) -> list:
+    """The flags every MLM fit of the phase shares: the model and data,
+    ``steps`` steps of ``batch`` x MLM_SEQ, one log line a step, seed
+    1234, on the card."""
+    return [str(x) for x in (
+        "--model_path", model_dir, "--train_file", train,
+        "--max_seq_length", MLM_SEQ, "--masked_lm_prob", 0.15,
+        "--train_batchsize", batch, "--max_steps", steps,
+        "--default_root_dir", workdir / name / "runs", "--save_ckpt_path",
+        workdir / name / "ckpt", "--load_ckpt_path", workdir / name / "ckpt",
+        "--log_every_n_steps", 1, "--seed", 1234, "--device", "cuda",
+        *extra)]
+
+
+def deberta_flops_per_token(cfg, seq: int) -> float:
+    """Forward plus backward FLOPs a token of DeBERTa-v2 at ``seq``
+    tokens: 6 x the matrix parameters a token passes (each layer's 4 h^2
+    + 2 h i, the MLM transform's h^2, the tied decoder's h V), plus per
+    layer 6 x 2 x h x (seq for Q K^T, seq for P V, and 2 x
+    position_buckets for each of c2p and p2c: each position term counted
+    as the Q K^T product is). The per-batch projections of the
+    relative-position table (2 x 2 x 512 x h^2 a layer, about 2 % at 8 x
+    512) and the embedding lookups are left out."""
+    h, layers = cfg.hidden_size, cfg.num_hidden_layers
+    matrix = layers * (4 * h * h + 2 * h * cfg.intermediate_size) + \
+        h * h + h * cfg.vocab_size
+    span = 2 * cfg.pos_ebd_size
+    attention = layers * 2 * h * (2 * seq + len(cfg.pos_att_type) * span)
+    return 6.0 * matrix + 3.0 * attention
+
+
+def mlm_bf16_bar(model, batch: dict) -> dict:
+    """The MLM logits of the bf16 forward against fp32 compute on
+    ``batch`` at its real (unpadded) tokens: ``{"rel_l2": ...,
+    "mask_dropped_rel_l2": ...}``, the second with the padding mask
+    dropped from the bf16 forward (the planted fault)."""
+    import torch
+    real = batch["attention_mask"].bool()
+
+    def logits(dtype, mask=True):
+        before, model.config.dtype = model.config.dtype, dtype
+        try:
+            with torch.no_grad():
+                out = model(batch["input_ids"],
+                            attention_mask=batch["attention_mask"]
+                            if mask else None,
+                            token_type_ids=batch.get("token_type_ids"))
+            return (out[0] if isinstance(out, tuple) else out).float()[real]
+        finally:
+            model.config.dtype = before
+
+    want = logits("float32")
+    return {"rel_l2": ((logits("bfloat16") - want).norm() /
+                       want.norm()).item(),
+            "mask_dropped_rel_l2": ((logits("bfloat16", mask=False) -
+                                     want).norm() / want.norm()).item()}
+
+
+def initial_weights_bar(model_cls, cfg, batch: dict) -> dict:
+    """:func:`mlm_bf16_bar` on a fit's step-0 weights, drawn as
+    ``init_params`` draws them from ``--seed`` 1234. A freshly drawn
+    encoder mixes its context (the padding mask moves its hidden states
+    by about half their norm), so the dropped mask must break the bar
+    here; after 20 steps on text with no context to learn the model
+    predicts the unigram law everywhere and hardly reads its context, so
+    on the trained weights the fault is only printed."""
+    import torch
+    from fengshen_tpu_torch.models.layers import init_weights
+    model = model_cls(cfg, device="cuda", init=False)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(1234),
+                 cfg.initializer_range)
+    model.requires_grad_(False)
+    bar = mlm_bf16_bar(model, batch)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bar
+
+
+def to_card(batch: dict) -> dict:
+    import torch
+    return {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+
+
+def phase_index_builders(workdir: Path, card) -> tuple:
+    """17a, on the card's host: an indexed corpus of IDX_DOCS documents
+    (about 1.1e8 tokens) written with the port's builder, then the index
+    helpers compiled from ``csrc/index_helpers.cpp`` (timed), and
+    ``build_mapping`` (target 509, short windows 0.1),
+    ``build_sample_idx`` (512, documents shuffled) and
+    ``build_blending_indices`` (the two, 0.7 / 0.3) timed over it; the
+    last two held to their plain versions bitwise, the windows to their
+    documents. Returns ``(corpus, report)``."""
+    import numpy as np
+    from fengshen_tpu_torch.data.megatron_dataloader import (
+        MMapIndexedDataset, MMapIndexedDatasetBuilder, helpers)
+    from fengshen_tpu_torch.data.megatron_dataloader.gpt_dataset import \
+        sequence_order
+
+    t_phase = time.perf_counter()
+    failures = []
+    rng = np.random.RandomState(17)
+    t0 = time.perf_counter()
+    counts = rng.randint(*IDX_SENTS, IDX_DOCS)
+    sizes = rng.randint(*IDX_SENT_LEN, int(counts.sum())).astype(np.int32)
+    vocab = json.loads(ERLANGSHEN_CONFIG.read_text())["vocab_size"]
+    tokens = rng.randint(MLMTokenizer.FIRST_CHAR, vocab,
+                         int(sizes.sum()), dtype=np.int32)
+    made_s = time.perf_counter() - t0
+    prefix = str(workdir / "corpus")
+    t0 = time.perf_counter()
+    builder = MMapIndexedDatasetBuilder(prefix)
+    builder.add_items(tokens, sizes)
+    builder.end_documents(counts)
+    builder.finalize()
+    write_s = time.perf_counter() - t0
+    del tokens
+    corpus = MMapIndexedDataset(prefix)
+    n_tokens = int(np.asarray(corpus.sizes, np.int64).sum())
+    corpus_gb = (Path(prefix + ".bin").stat().st_size +
+                 Path(prefix + ".idx").stat().st_size) / 1e9
+    if len(corpus.doc_idx) - 1 != IDX_DOCS or n_tokens < IDX_MIN_TOKENS:
+        failures.append(f"corpus: {len(corpus.doc_idx) - 1} documents, "
+                        f"{n_tokens} tokens")
+
+    lib = helpers.build(force=True)
+    compile_s = helpers.last_build_seconds
+    helpers.load()
+    docs = np.asarray(corpus.doc_idx, np.int64)
+    all_sizes = np.asarray(corpus.sizes, np.int32)
+    t0 = time.perf_counter()
+    maps = helpers.build_mapping(docs, all_sizes, IDX_SEQ - 3, IDX_SHORT,
+                                 1234)
+    mapping_s = time.perf_counter() - t0
+    doc_of = np.searchsorted(docs, maps[:, 0], side="right") - 1
+    windows_ok = bool(len(maps) and (maps[:, 1] <= docs[doc_of + 1]).all()
+                      and (maps[:, 1] - maps[:, 0] >= 2).all() and
+                      (maps[:, 2] <= IDX_SEQ - 3).all() and
+                      (maps[:, 2] >= 2).all())
+    short = float((maps[:, 2] < IDX_SEQ - 3).mean()) if len(maps) else 0.0
+    if not windows_ok:
+        failures.append("build_mapping: a window leaves its document or "
+                        "its target exceeds 509")
+
+    order = sequence_order(docs, np.random.RandomState(1234).permutation(
+        IDX_DOCS).astype(np.int32))
+    args = (all_sizes, order, IDX_SEQ, 1, n_tokens)
+    t0 = time.perf_counter()
+    sample_idx = helpers.build_sample_idx(*args)
+    sample_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sample_plain = helpers.build_sample_idx_plain(*args)
+    sample_plain_s = time.perf_counter() - t0
+    if not np.array_equal(sample_idx, sample_plain):
+        failures.append("build_sample_idx differs from its plain version")
+    size = len(maps) + len(sample_idx) - 1
+    t0 = time.perf_counter()
+    blend = helpers.build_blending_indices(list(IDX_WEIGHTS), size)
+    blend_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blend_plain = helpers.build_blending_indices_plain(list(IDX_WEIGHTS),
+                                                      size)
+    blend_plain_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(blend, blend_plain)):
+        failures.append("build_blending_indices differs from its plain "
+                        "version")
+    share = float((blend[0] == 0).mean())
+    report = {
+        "documents": len(corpus.doc_idx) - 1, "sentences": len(corpus),
+        "tokens": n_tokens, "corpus_gb": corpus_gb, "made_s": made_s,
+        "write_s": write_s, "library": lib.name, "compile_s": compile_s,
+        "build_mapping_s": mapping_s, "windows": len(maps),
+        "short_window_share": short, "windows_inside_documents": windows_ok,
+        "build_sample_idx_s": sample_s,
+        "build_sample_idx_plain_s": sample_plain_s,
+        "gpt_samples": len(sample_idx) - 1,
+        "build_blending_indices_s": blend_s,
+        "build_blending_indices_plain_s": blend_plain_s,
+        "blend_size": size, "blend_share_first": share}
+    say("index_builders", card=card, **report,
+        phase_s=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("index_builders: " + "; ".join(failures))
+    return corpus, report
+
+
+def mlm_fit(workdir: Path, name: str, card, main_fn, module_cls, model_cls,
+            cfg, raw: dict, segmenter: dict, make_collator, rng,
+            extra=(), profile=False) -> dict:
+    """One MLM fit of the phase: the batch reckoned for MLM_BATCH rows on
+    a probe model of the fit's geometry, MLM_STEPS steps of it through
+    ``main_fn`` with the shell's ``extra`` flags, then the bf16 MLM
+    logits held to fp32 compute on the trained weights, over 8 rows of
+    the fit's collator, the most padded first. Returns the report with
+    the trainer and those rows in it (``_trainer``, ``_check``) for the
+    caller (:func:`check_initial_bar` takes the rows)."""
+    import numpy as np
+    import torch
+    tok = MLMTokenizer(cfg.vocab_size)
+    model_dir = config_dir(workdir / f"{name}_model", raw)
+    probe_rows = mlm_records(max(PROBE_ROWS), rng)
+    probe_model = model_cls(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(17))
+    from fengshen_tpu_torch.examples.pretrain_bert.pretrain_bert import \
+        pretrain_parser
+    probe_args = pretrain_parser(module_cls).parse_args(
+        ["--model_path", str(model_dir)])
+    plan = reckon_batch(module_cls(probe_args, probe_model, cfg),
+                        lambda n: make_collator(tok)(probe_rows[:n]),
+                        MLM_BATCH)
+    del probe_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = plan["batch"]
+    train = write_jsonl(workdir / f"{name}_train.json",
+                        mlm_records(MLM_STEPS * batch, rng))
+    argv = mlm_argv(workdir, name, model_dir, train, MLM_STEPS, batch,
+                    extra)
+    if profile:
+        argv += ["--profile_steps", ",".join(map(str, MLM_PROFILE))]
+    trainer, fit_s = run_fit(main_fn, argv, tokenizer=tok, **segmenter)
+    profiled = set(range(MLM_PROFILE[0] + 1, MLM_PROFILE[1] + 1)) \
+        if profile else set()
+    report = fit_report(trainer, batch * MLM_SEQ,
+                        profiled | ({MLM_PROFILE[1] + 1} if profile
+                                    else set()))
+    report.update(batch=batch, memory_plan=plan, fit_s=fit_s)
+    if profile:
+        report["profile"] = step_profile(trainer, profiled)
+    model = trainer.state.model
+    rows = make_collator(tok)(mlm_records(32, np.random.RandomState(170)))
+    most_padded = np.argsort(rows["attention_mask"].sum(1),
+                             kind="stable")[:8]
+    check = to_card({k: v[most_padded] for k, v in rows.items()})
+    bar = mlm_bf16_bar(model, check)
+    report.update(bf16_vs_fp32_rel_l2=bar["rel_l2"],
+                  trained_mask_dropped_rel_l2=bar["mask_dropped_rel_l2"],
+                  bf16_rtol=CLS_BF16_RTOL, bf16_rows_pad_share=1.0 -
+                  check["attention_mask"].float().mean().item())
+    losses = report["losses"]
+    report["failures"] = []
+    if len(losses) != MLM_STEPS or not report["losses_finite"] or \
+            not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        report["failures"].append(f"losses {losses}")
+    if bar["rel_l2"] > CLS_BF16_RTOL:
+        report["failures"].append(
+            f"bf16 vs fp32 logits rel L2 {bar['rel_l2']} (limit "
+            f"{CLS_BF16_RTOL})")
+    report["_trainer"], report["_check"] = trainer, check
+    return report
+
+
+def check_initial_bar(report: dict, model_cls, cfg) -> None:
+    """The bar on the fit's step-0 weights into ``report``: bf16 within
+    RD_BF16_RTOL of fp32 (phase 15's bar for a freshly drawn deep stack:
+    every one of its 24 layers mixes context, so bf16 rounding compounds
+    to about 1.6e-2 at step 0 on an H100, four times the trained model's;
+    PERF.md §6), and the dropped mask beyond it."""
+    bar = initial_weights_bar(model_cls, cfg, report.pop("_check"))
+    report.update(initial_bf16_vs_fp32_rel_l2=bar["rel_l2"],
+                  initial_mask_dropped_rel_l2=bar["mask_dropped_rel_l2"],
+                  initial_bf16_rtol=RD_BF16_RTOL)
+    if bar["rel_l2"] > RD_BF16_RTOL or \
+            bar["mask_dropped_rel_l2"] <= RD_BF16_RTOL:
+        report["failures"].append(
+            f"step-0 weights: bf16 vs fp32 logits rel L2 {bar['rel_l2']} "
+            f"(limit {RD_BF16_RTOL}); mask dropped "
+            f"{bar['mask_dropped_rel_l2']}")
+
+
+def phase_mlm_pretrain(workdir: Path, card):
+    """17a-17d: the index builders at corpus scale
+    (:func:`phase_index_builders`); then ``pretrain_erlangshen.main``
+    with the flags of ``pretrain_erlangshen_base.sh`` (``--max_seq_length
+    512 --masked_lm_prob 0.15 --scheduler_type polynomial --warmup_ratio
+    0.01 --learning_rate 1e-4``, ``--fsdp_parallel_size`` 1 on one card)
+    on Erlangshen-MegatronBert-1.3B at all 24 layers, MLM_STEPS steps of
+    the shell's 32 rows of 512 or what the memory probe allows, steps 5-6
+    profiled, the bf16 bar on the trained and the step-0 weights
+    (:func:`check_initial_bar`), and two more steps whose rows come from
+    a ``BertDataset`` over 17a's corpus; ``pretrain_deberta.main`` with
+    ``pretrain_deberta_base.sh``'s flags on Erlangshen-DeBERTa-v2-710M
+    at all 24 layers likewise (MFU from :func:`deberta_flops_per_token`);
+    ``pretrain_bert.main`` with ``pretrain_bert.sh``'s flags on
+    bert-base-chinese, 32 x 512, BB_STEPS steps with a checkpoint after
+    MLM_CKPT_AT, resumed from it: the resumed step's loss equals the
+    uninterrupted run's. Words are cut two characters a word (the card's
+    machine has no ``jieba``). K1-K4 launch 0 times."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from fengshen_tpu_torch.data.megatron_dataloader import BertDataset
+    from fengshen_tpu_torch.examples.pretrain_bert import pretrain_bert
+    from fengshen_tpu_torch.examples.pretrain_erlangshen_bert import \
+        pretrain_erlangshen
+    from fengshen_tpu_torch.examples.pretrain_erlangshen_deberta_v2 import \
+        pretrain_deberta
+    from fengshen_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from fengshen_tpu_torch.models.deberta_v2 import (DebertaV2Config,
+                                                      DebertaV2ForMaskedLM)
+    from fengshen_tpu_torch.models.megatron_bert import (
+        MegatronBertConfig, MegatronBertForPreTraining)
+    from fengshen_tpu_torch.ops.kernels import reset_launch_counts
+
+    free, disk = check_room("mlm_pretrain", workdir, MLM_MIN_FREE_GIB,
+                            MLM_MIN_DISK_GIB)
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    failures = []
+    geometry = {}
+    for name, cls, cfg_cls, path, want, layers in (
+            ("erlangshen", MegatronBertForPreTraining, MegatronBertConfig,
+             ERLANGSHEN_CONFIG, MB_PARAMS, 24),
+            ("deberta", DebertaV2ForMaskedLM, DebertaV2Config,
+             DEBERTA_CONFIG, DEB_PARAMS, 24),
+            ("bert", BertForMaskedLM, BertConfig, BERT_BASE_CONFIG,
+             BB_PARAMS, 12)):
+        cfg = cfg_cls.from_pretrained(str(path))
+        n = count_params(cls, cfg)
+        geometry[name] = {"config": path.name, "n_params": n,
+                          "layers": cfg.num_hidden_layers}
+        if n != want or cfg.num_hidden_layers != layers:
+            raise AssertionError(f"mlm_pretrain: {name} has {n} parameters"
+                                 f" and {cfg.num_hidden_layers} layers "
+                                 f"(want {want}, {layers})")
+    corpus, index_report = phase_index_builders(workdir, card)
+    rng = np.random.RandomState(17)
+    words = {"zh_tokenizer": two_char_words}
+
+    # 17b: Erlangshen-MegatronBert-1.3B, MLM + SOP
+    cfg = MegatronBertConfig.from_pretrained(str(ERLANGSHEN_CONFIG))
+    mb = mlm_fit(
+        workdir, "erlangshen", card, pretrain_erlangshen.main,
+        pretrain_erlangshen.ErLangShenBert, MegatronBertForPreTraining, cfg,
+        json.loads(ERLANGSHEN_CONFIG.read_text()), words,
+        lambda tok: pretrain_erlangshen.ErLangShenCollator(
+            tok, MLM_SEQ, zh_tokenizer=two_char_words), rng,
+        extra=("--scheduler_type", "polynomial", "--warmup_ratio", 0.01,
+               "--learning_rate", 1e-4, "--fsdp_parallel_size", 1,
+               "--every_n_train_steps", 1000),
+        profile=True)
+    trainer = mb.pop("_trainer")
+    history = [e for e in trainer.history if "step_time_s" in e]
+    mb["mlm_loss"] = [e["mlm_loss"] for e in history]
+    mb["sop_loss"] = [e["sop_loss"] for e in history]
+    mb["mlm_acc"] = [e["mlm_acc"] for e in history]
+    # two more steps on rows of a BertDataset over 17a's corpus
+    t0 = time.perf_counter()
+    dataset = BertDataset(corpus, MLMTokenizer(cfg.vocab_size), MLM_SEQ,
+                          0.15, IDX_SHORT, seed=1234,
+                          zh_tokenizer=two_char_words)
+    module = pretrain_erlangshen.ErLangShenBert(trainer.args,
+                                                trainer.state.model, cfg)
+    optimizer = trainer.state.optimizer
+    extra_losses, keys = [], None
+    for step in range(2):
+        rows = [dataset[step * mb["batch"] + i] for i in range(mb["batch"])]
+        batch = to_card({k: np.stack([r[k] for r in rows])
+                         for k in rows[0]})
+        keys = {k: list(v.shape) for k, v in batch.items()}
+        optimizer.zero_grad(set_to_none=True)
+        loss, _ = module.training_loss(batch)
+        loss.backward()
+        optimizer.step()
+        extra_losses.append(loss.item())
+    torch.cuda.synchronize()
+    mb.update(bert_dataset_windows=len(dataset),
+              bert_dataset_batch=keys, bert_dataset_losses=extra_losses,
+              bert_dataset_s=time.perf_counter() - t0)
+    if not np.isfinite(extra_losses).all():
+        mb["failures"].append(f"BertDataset steps: {extra_losses}")
+    del trainer, module, optimizer, dataset
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_initial_bar(mb, MegatronBertForPreTraining, cfg)
+
+    # 17c: Erlangshen-DeBERTa-v2-710M, MLM
+    cfg = DebertaV2Config.from_pretrained(str(DEBERTA_CONFIG))
+    deb = mlm_fit(
+        workdir, "deberta", card, pretrain_deberta.main,
+        pretrain_deberta.DebertaPretrainModule, DebertaV2ForMaskedLM, cfg,
+        json.loads(DEBERTA_CONFIG.read_text()), words,
+        lambda tok: pretrain_deberta.DeBERTaV2Collator(
+            tok, MLM_SEQ, zh_tokenizer=two_char_words), rng,
+        extra=("--learning_rate", 1e-4, "--warmup_steps", PT_WARMUP,
+               "--precision", "bf16", "--every_n_train_steps", 5000))
+    deb.pop("_trainer")
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_initial_bar(deb, DebertaV2ForMaskedLM, cfg)
+    fpt = deberta_flops_per_token(cfg, MLM_SEQ)
+    deb.update(flops_per_token=fpt, flops_per_token_logged=deb[
+        "flops_per_token"], mfu=fpt * deb["tokens_per_s"] / BF16_FLOPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 17d: bert-base-chinese whole-word masking; a checkpoint and its
+    # resume
+    cfg = BertConfig.from_pretrained(str(BERT_BASE_CONFIG))
+    tok = MLMTokenizer(cfg.vocab_size)
+    model_dir = config_dir(workdir / "bert_model",
+                           json.loads(BERT_BASE_CONFIG.read_text()))
+    train = write_jsonl(workdir / "bert_train.json",
+                        mlm_records(BB_STEPS * MLM_BATCH, rng))
+    argv = mlm_argv(workdir, "bert", model_dir, train, BB_STEPS, MLM_BATCH,
+                    ("--learning_rate", 1e-4, "--warmup_steps", PT_WARMUP,
+                     "--precision", "bf16", "--every_n_train_steps",
+                     MLM_CKPT_AT))
+    trainer, fit_s = run_fit(pretrain_bert.main, argv, tokenizer=tok,
+                             word_cuter=two_char_words)
+    bb = fit_report(trainer, MLM_BATCH * MLM_SEQ)
+    whole = {e["step"]: e["loss"] for e in trainer.history
+             if "step_time_s" in e}
+    io = dict(next(c for c in trainer.callbacks if hasattr(c, "stats"))
+              .stats)
+    del trainer
+    saved = sorted(p.name for p in (workdir / "bert" / "ckpt").iterdir())
+    resumed, resume_s = run_fit(pretrain_bert.main, argv, tokenizer=tok,
+                                word_cuter=two_char_words)
+    again = {e["step"]: e["loss"] for e in resumed.history
+             if "step_time_s" in e}
+    rio = next(c for c in resumed.callbacks if hasattr(c, "stats")).stats
+    del resumed
+    bb.update(batch=MLM_BATCH, fit_s=fit_s, checkpoints=saved,
+              ckpt_gib_written=io["bytes_written"] / 2**30,
+              ckpt_write_gib_per_s=io["bytes_written"] / 2**30 /
+              max(io["save_s"], 1e-9), resume_s=resume_s,
+              ckpt_gib_read=rio["bytes_read"] / 2**30,
+              resumed_losses=again,
+              resumed_step_equal=again == {BB_STEPS: whole.get(BB_STEPS)})
+    bb["failures"] = []
+    if saved != [str(MLM_CKPT_AT)] or not bb["resumed_step_equal"] or \
+            not bb["losses_finite"] or len(bb["losses"]) != BB_STEPS:
+        bb["failures"].append(f"checkpoints {saved}, uninterrupted "
+                              f"{whole}, resumed {again}")
+    shutil.rmtree(workdir / "bert" / "ckpt")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = kernel_launches()
+    if any(launches.values()):
+        failures.append(f"kernel launches on the MLM paths: {launches}")
+    for name, report in (("erlangshen_1.3b", mb), ("deberta_v2_710m", deb),
+                         ("bert_base", bb)):
+        fails = report.pop("failures")
+        failures += [f"{name}: {f}" for f in fails]
+        say(f"mlm_pretrain_{name}", card=card, **geometry[
+            name.split("_")[0]], seq=MLM_SEQ, shell_batch=MLM_BATCH,
+            **report)
+    say("mlm_pretrain", card=card, device_free_gib=free, disk_free_gib=disk,
+        index_builders=index_report, kernel_launches=launches,
+        phase_s=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("mlm_pretrain: " + "; ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -5815,6 +6379,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_seq2seq_families(Path(tmp), card)
         mark("16_seq2seq_families")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_mlm_pretrain(Path(tmp), card)
+        mark("17_mlm_pretrain")
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     main_row = rows[("paged", 1)]

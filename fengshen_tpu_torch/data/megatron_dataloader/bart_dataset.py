@@ -26,7 +26,8 @@ from typing import Any, Optional
 
 import numpy as np
 
-from fengshen_tpu_torch.data.data_utils.mask_utils import whole_word_spans
+from fengshen_tpu_torch.data.data_utils.mask_utils import (jieba_lcut,
+                                                           whole_word_spans)
 from fengshen_tpu_torch.data.megatron_dataloader.indexed_dataset import (
     MMapIndexedDataset)
 
@@ -34,18 +35,6 @@ from fengshen_tpu_torch.data.megatron_dataloader.indexed_dataset import (
 def _poisson_span_lengths(n: int, lam: float, np_rng) -> np.ndarray:
     """``n`` span lengths of at least 1 from Poisson(``lam``)."""
     return np.maximum(np_rng.poisson(lam, size=n), 1)
-
-
-def _jieba_lcut():
-    try:
-        import jieba
-    except ImportError as e:
-        raise ImportError(
-            "BartDataset(zh_tokenizer=None) segments words with jieba, "
-            "which is not installed; pass zh_tokenizer=False to group "
-            "wordpieces by their '##' prefix, or a segmenting callable"
-        ) from e
-    return jieba.lcut
 
 
 class BartDataset:
@@ -66,7 +55,7 @@ class BartDataset:
         self.poisson_lambda = poisson_lambda
         self.seed = seed
         if zh_tokenizer is None:
-            zh_tokenizer = _jieba_lcut()
+            zh_tokenizer = jieba_lcut("BartDataset")
         self.zh_tokenizer = zh_tokenizer or None
         vocab = tokenizer.get_vocab()
         self.vocab_id_to_token = {v: k for k, v in vocab.items()}

@@ -37,9 +37,10 @@ def index_file_path(prefix: str) -> str:
 
 
 class MMapIndexedDatasetBuilder:
-    """Appends sequences (:meth:`add_item`) and document boundaries
-    (:meth:`end_document`) to ``<out_file>.bin``; :meth:`finalize`
-    writes ``<out_file>.idx`` (:45)."""
+    """Appends sequences (:meth:`add_item`, or :meth:`add_items` in
+    bulk) and document boundaries (:meth:`end_document`,
+    :meth:`end_documents`) to ``<out_file>.bin``; :meth:`finalize` writes
+    ``<out_file>.idx`` (:45)."""
 
     def __init__(self, out_file: str, dtype=np.int32):
         self._data = open(data_file_path(out_file), "wb")
@@ -55,6 +56,28 @@ class MMapIndexedDatasetBuilder:
 
     def end_document(self) -> None:
         self._doc_idx.append(len(self._sizes))
+
+    def add_items(self, tokens, sizes) -> None:
+        """Append ``len(sizes)`` sequences at once from ``tokens``, which
+        holds them back to back: the bytes of one :meth:`add_item` per
+        sequence, for corpora made in bulk."""
+        arr = np.ascontiguousarray(tokens, dtype=self._dtype).reshape(-1)
+        sizes = np.asarray(sizes, np.int64)
+        if int(sizes.sum()) != arr.size:
+            raise ValueError(f"sizes add up to {int(sizes.sum())} tokens, "
+                             f"tokens holds {arr.size}")
+        self._data.write(arr.tobytes(order="C"))
+        self._sizes.extend(sizes.tolist())
+
+    def end_documents(self, counts) -> None:
+        """Close one document per entry of ``counts``, each of that many
+        of the sequences after the last boundary, in order: one
+        :meth:`end_document` per document."""
+        ends = self._doc_idx[-1] + np.cumsum(np.asarray(counts, np.int64))
+        if len(ends) and int(ends[-1]) > len(self._sizes):
+            raise ValueError(f"documents end at sequence {int(ends[-1])}, "
+                             f"{len(self._sizes)} were added")
+        self._doc_idx.extend(ends.tolist())
 
     def merge_file_(self, another_prefix: str) -> None:
         """Append every sequence and document boundary of the corpus at

@@ -5,8 +5,8 @@
 ``fengshen_model_type`` or ``model_type``, :117-122) to the family's
 module, config class and heads, imported on first use (:14-101). The
 families the port has are registered with their heads: ``llama``,
-``ziya_llama``, ``gpt2``, ``megatron-bert``, ``bert``, ``t5``, ``bart``,
-``pegasus`` and ``deltalm``. A family the
+``ziya_llama``, ``gpt2``, ``megatron-bert``, ``bert``, ``deberta-v2``,
+``t5``, ``bart``, ``pegasus`` and ``deltalm``. A family the
 JAX package registers and the port does not have yet raises
 ``NotImplementedError`` naming ROADMAP.md queue 1 item 11; an unknown
 ``model_type`` raises ``KeyError``, as the reference does.
@@ -49,6 +49,11 @@ MODEL_REGISTRY: dict[str, tuple[str, str, dict[str, str]]] = {
                            "MegatronBertForTokenClassification"}),
     "bert": ("fengshen_tpu_torch.models.bert", "BertConfig",
              {"base": "BertModel", "masked_lm": "BertForMaskedLM"}),
+    "deberta-v2": ("fengshen_tpu_torch.models.deberta_v2", "DebertaV2Config",
+                   {"base": "DebertaV2Model",
+                    "masked_lm": "DebertaV2ForMaskedLM",
+                    "sequence_classification":
+                        "DebertaV2ForSequenceClassification"}),
     "t5": ("fengshen_tpu_torch.models.t5", "T5Config",
            {"base": "T5Model",
             "conditional_generation": "T5ForConditionalGeneration",
@@ -66,7 +71,7 @@ MODEL_REGISTRY: dict[str, tuple[str, str, dict[str, str]]] = {
 
 #: the JAX package's registered families the port does not have yet
 NOT_YET_PORTED = (
-    "roformer", "albert", "deberta-v2", "longformer", "zen", "zen2",
+    "roformer", "albert", "longformer", "zen", "zen2",
     "davae", "gavae", "ppvae",
     "della", "transfo-xl-denoise", "transfo-xl-paraphrase",
     "transfo-xl-reasoning")

@@ -6,12 +6,14 @@ One factory builds ``ForSequenceClassification``,
 ``ForMultipleChoice`` for any encoder class ``encoder_cls(config,
 add_pooling_layer=..., device=..., init=...)`` whose forward maps
 ``input_ids`` (and keyword inputs such as ``attention_mask`` and
-``token_type_ids``) to ``(hidden, pooled)``: the ported families all
-have a pooler (the reference's factory also serves encoders without
-one, ``has_pooler=False``, which no ported family needs yet). The
-encoder sits under ``encoder_name``; the heads' projections follow
-flax's dtype policy (``models/layers.py``) and draw their dropout seed
-after the encoder's.
+``token_type_ids``) to ``(hidden, pooled)``, or, with
+``has_pooler=False`` (DeBERTa-v2), an encoder ``encoder_cls(config,
+device=..., init=...)`` that maps them to ``hidden`` alone: then the
+sequence-classification and multiple-choice heads pool ``[CLS]``
+through a ``pooler`` projection and tanh of their own, as the
+reference's factory does. The encoder sits under ``encoder_name``; the
+heads' projections follow flax's dtype policy (``models/layers.py``) and
+draw their dropout seed after the encoder's.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def _param_dtype(cfg) -> str:
     return getattr(cfg, "param_dtype", "float32")
 
 
-def make_task_heads(encoder_cls: Callable, *,
+def make_task_heads(encoder_cls: Callable, *, has_pooler: bool = True,
                     encoder_name: str = "encoder") -> tuple:
     """``(ForSequenceClassification, ForTokenClassification,
     ForQuestionAnswering, ForMultipleChoice)`` over ``encoder_cls``."""
@@ -47,10 +49,15 @@ def make_task_heads(encoder_cls: Callable, *,
                      init: bool = True, **head_args):
             super().__init__()
             self.config = config
+            pooling = {"add_pooling_layer": self.pooled_needed} \
+                if has_pooler else {}
             with torch.device("meta"):
                 setattr(self, encoder_name, encoder_cls(
-                    config, add_pooling_layer=self.pooled_needed,
-                    device="meta", init=False))
+                    config, device="meta", init=False, **pooling))
+                if self.pooled_needed and not has_pooler:
+                    self.pooler = linear(config.hidden_size,
+                                         config.hidden_size,
+                                         _param_dtype(config))
                 self.build(config, **head_args)
             place(self, device, generator, init,
                   getattr(config, "initializer_range", 0.02))
@@ -59,9 +66,17 @@ def make_task_heads(encoder_cls: Callable, *,
             raise NotImplementedError
 
         def encode(self, input_ids, deterministic, dropout_rng, kwargs):
-            return getattr(self, encoder_name)(
+            """``(hidden, pooled)``; ``pooled`` is None from an encoder
+            without a pooler when the head pools nothing."""
+            out = getattr(self, encoder_name)(
                 input_ids, deterministic=deterministic,
                 dropout_rng=dropout_rng, **kwargs)
+            if has_pooler:
+                return out
+            pooled = torch.tanh(dense(self.pooler, out[:, 0],
+                                      _dt(self.config))) \
+                if self.pooled_needed else None
+            return out, pooled
 
         def drop(self, x, deterministic, dropout_rng):
             rate = getattr(self.config, "hidden_dropout_prob", 0.1)

@@ -68,11 +68,13 @@ class Embed(nn.Module):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator,
                  std: float) -> None:
-    """Projections and embeddings N(0, ``std``) from ``generator``,
-    biases 0, norms at 1, and every other parameter (an LM head's bias)
-    0, in module order."""
+    """Projections (and convolution kernels) and embeddings N(0,
+    ``std``) from ``generator``, biases 0, norms at 1; a module with an
+    ``init_own_parameters(generator, std)`` method draws its own direct
+    parameters (DeBERTa's relative-position table); every other
+    parameter (an LM head's bias) is 0. In module order."""
     for module in model.modules():
-        if isinstance(module, nn.Linear):
+        if isinstance(module, (nn.Linear, nn.Conv1d)):
             module.weight.normal_(0.0, std, generator=generator)
             if module.bias is not None:
                 module.bias.zero_()
@@ -81,6 +83,8 @@ def init_weights(model: nn.Module, generator: torch.Generator,
         elif isinstance(module, LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
+        elif hasattr(module, "init_own_parameters"):
+            module.init_own_parameters(generator, std)
         else:
             for p in module.parameters(recurse=False):
                 p.zero_()

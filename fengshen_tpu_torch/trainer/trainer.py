@@ -175,6 +175,9 @@ class Trainer:
         #: the epoch of the step loop (0 before the first)
         self.current_epoch = 0
         self.state: Optional[TrainState] = None
+        #: the datamodule of the running fit (its collator's state goes
+        #: into a checkpoint)
+        self.datamodule = None
         #: the last ``--profile_steps`` window's ``torch.profiler``
         self.profiler = None
         root = getattr(args, "default_root_dir", "./runs")
@@ -487,6 +490,7 @@ class Trainer:
         args = self.args
         module.setup("fit")
         datamodule.trainer = self
+        self.datamodule = datamodule
         seed = getattr(args, "seed", 42)
         generator = torch.Generator(device=self.device).manual_seed(seed)
 

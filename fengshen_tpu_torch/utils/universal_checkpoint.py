@@ -10,7 +10,9 @@ per step under ``--save_ckpt_path``::
         meta.json               global_step, consumed_samples,
                                 global_samples, the TrainState's step and
                                 bad_step_count, the scheduler's position,
-                                the optimizer's param groups and scalars
+                                the optimizer's param groups and scalars,
+                                and the train collator's state when it
+                                has one (``collate_state``)
         params.safetensors      every parameter and buffer of the model
         optimizer.safetensors   the optimizer's state tensors (absent
                                 under --save_weights_only)
@@ -43,7 +45,11 @@ in its own save directory the rejected steps are then deleted. A step
 whose parameter names, shapes or dtypes differ from the model's raises
 :class:`CheckpointStructureMismatch` at once, before any tensor is
 read. A weights-only checkpoint loaded into a full run keeps the fresh
-optimizer. A missing load path is skipped silently, as the reference
+optimizer. A collator that draws from its own generator (the MLM
+collators' ``RandomState``) and offers ``state_dict`` /
+``load_state_dict`` is saved with each step and restored on resume, so
+the resumed run's batches are the uninterrupted run's (the reference
+restarts the collator's generator). A missing load path is skipped silently, as the reference
 does. ``--async_save`` is not ported and raises.
 """
 
@@ -72,6 +78,11 @@ class CheckpointStructureMismatch(ValueError):
     """The checkpoint's parameter names or shapes differ from the run's
     model: a configuration error (wrong model, wrong directory), not
     corrupt data, so no older step is tried."""
+
+
+def _collate_fn(trainer: Any):
+    """The collator of the trainer's running fit, or None."""
+    return getattr(getattr(trainer, "datamodule", None), "collate_fn", None)
 
 
 def committed_steps(path: str) -> list:
@@ -187,6 +198,9 @@ class UniversalCheckpoint:
                 "consumed_samples": int(trainer.consumed_samples),
                 "global_samples": int(trainer.consumed_samples),
                 **state.checkpoint_meta()}
+        collate = _collate_fn(trainer)
+        if hasattr(collate, "state_dict"):
+            meta["collate_state"] = collate.state_dict()
         metrics = {"epoch": int(getattr(trainer, "current_epoch", 0)),
                    "step": step,
                    **getattr(trainer, "callback_metrics", {})}
@@ -358,6 +372,10 @@ class UniversalCheckpoint:
                      "ckpt_step": int(bad_step)})
         trainer.global_step = int(meta["global_step"])
         trainer.consumed_samples = int(meta["consumed_samples"])
+        collate = _collate_fn(trainer)
+        if not weights_only and "collate_state" in meta and \
+                hasattr(collate, "load_state_dict"):
+            collate.load_state_dict(meta["collate_state"])
         self.stats["restores"] += 1
         self.stats["bytes_read"] += meta["_bytes_read"]
         self.stats["restore_s"] += time.perf_counter() - t0

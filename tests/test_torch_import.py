@@ -72,6 +72,27 @@ def test_no_port_file_imports_jax(path):
                 f"{path.name}:{node.lineno} imports {name}"
 
 
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from ((a.name, node.lineno) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or "", node.lineno
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "tests").glob("test_torch_*_gpu.py")),
+    ids=lambda p: p.name)
+def test_no_gpu_test_file_imports_jax(path):
+    """The ``gpu`` tests run on the card's machine, which has no JAX:
+    none imports jax, flax or the JAX package, even inside a
+    function."""
+    for name, line in _imports(path):
+        assert name.split(".")[0] not in FORBIDDEN - LAZY_ONLY, \
+            f"{path.name}:{line} imports {name}"
+
+
 def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
