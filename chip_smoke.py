@@ -212,7 +212,23 @@ Phases (each raises on failure, so any failure exits non-zero):
    Words are cut two characters a word (no ``jieba`` on the card's
    machine); parameter counts, free device memory (60 GiB) and disk (3
    GiB) are checked first; K1-K4 launch 0 times; step time, tokens/s,
-   MFU, peak memory and losses are printed per fit.
+   MFU, peak memory and losses are printed per fit;
+18. Taiyi Stable Diffusion at full SD-1.x width and depth (UNet
+   859,520,964 and VAE 83,653,863 parameters, checked first; a BERT-base
+   text tower; 512 px images and 77-token captions made from a seed;
+   fp32): the SD-1.x test towers on the card held to the CPU within
+   SD_CPU_RTOL; ``finetune.main`` with ``--faithful_towers`` for 4 steps
+   at the batch the memory probe allows (8 wanted), step 4 profiled:
+   losses finite, the UNet moved, the frozen text tower and VAE bitwise
+   unchanged, step time, peak memory, the step's FLOPs
+   (``FlopCounterMode``) and MFU against FP32_FLOPS; ``demo.main`` on the
+   trained module at 512 px, guidance 7.5, 20 denoise steps (the demo's
+   default is 50); then the module behind ``Pipeline`` (4 steps),
+   ``BatchImageEngine(max_batch=2)`` and the stdlib server:
+   ``/healthz`` 503 before warmup and 200 after, three concurrent POSTs
+   each a [512, 512, 3] uint8 image, a batch of 2 in ``/stats``, and the
+   drain with one request in flight (a late POST 503 ``draining``). No
+   checkpoint is written; K1-K4 launch 0 times.
 
 Phase 3 also holds K2 (fused LM-head cross-entropy: forward, dx, dK) to
 its plain version at the long-context path's shape (T = 32767 tokens,
@@ -3921,14 +3937,30 @@ def logits_of(model, batch, dtype: str, mask=True):
         cfg.dtype = before
 
 
+def union_ms(intervals) -> float:
+    """Milliseconds covered by the union of ``(start_us, end_us)``
+    intervals: kernels that overlap (on two streams) count once."""
+    total, end = 0.0, float("-inf")
+    for lo, hi in sorted(intervals):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total / 1e3
+
+
 def step_profile(trainer, profiled_steps) -> dict:
     """Device time per step of the steps a fit traced with
-    ``--profile_steps`` (``trainer.profiler``): busy ms, idle share of
-    each step's wall time, GEMM ms, kernels, ms per kernel group
-    (CLS_PROFILE_GROUPS) and the top kernels."""
+    ``--profile_steps`` (``trainer.profiler``, which starts and stops
+    after a device sync, so the trace holds those steps' kernels and no
+    others). Busy ms is the union of the kernels' intervals, and the
+    idle share is 1 - busy / the steps' wall time; the summed kernel
+    time, the streams and the span from the first kernel's start to the
+    last one's end sit beside it. Also GEMM ms, kernels, ms per kernel
+    group (CLS_PROFILE_GROUPS, summed kernel time) and the top
+    kernels."""
     history = trainer.history
     from torch.autograd import DeviceType
-    dev_us, n_kernels = {}, 0
+    dev_us, n_kernels, spans, streams = {}, 0, [], set()
     for ev in trainer.profiler.events():
         # a GPU user annotation (the optimizer's step range) spans
         # kernels counted on their own
@@ -3937,8 +3969,14 @@ def step_profile(trainer, profiled_steps) -> dict:
             n_kernels += 1
             dev_us[ev.name] = dev_us.get(ev.name, 0) + \
                 ev.time_range.elapsed_us()
+            spans.append((ev.time_range.start, ev.time_range.end))
+            streams.add(ev.thread)
     n_prof = len(profiled_steps)
-    busy_ms = sum(dev_us.values()) / 1e3 / n_prof
+    walls = [e["step_time_s"] * 1e3 for e in history
+             if "step_time_s" in e and e["step"] in profiled_steps]
+    busy_ms = union_ms(spans) / n_prof
+    sum_ms = sum(dev_us.values()) / 1e3 / n_prof
+    idle = [1 - busy_ms / w for w in walls]
     gemm_ms = sum(us for name, us in dev_us.items() if any(
         k in name for k in ("gemm", "nvjet", "cutlass", "sm90_xmma")))
     groups, top = {g: 0.0 for g, _ in CLS_PROFILE_GROUPS}, {}
@@ -3950,14 +3988,18 @@ def step_profile(trainer, profiled_steps) -> dict:
         top[name[:80]] = top.get(name[:80], 0.0) + us / 1e3 / n_prof
     profile = {
         "steps": sorted(profiled_steps),
-        "wall_ms_per_step": [round(e["step_time_s"] * 1e3, 3)
-                             for e in history if "step_time_s" in e and
-                             e["step"] in profiled_steps],
+        "wall_ms_per_step": walls,
         "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": [round(1 - busy_ms / (e["step_time_s"] * 1e3),
-                                    4) for e in history
-                              if "step_time_s" in e and
-                              e["step"] in profiled_steps],
+        "kernel_ms_summed_per_step": sum_ms,
+        "device_span_ms": ((max(e for _, e in spans) -
+                            min(s for s, _ in spans)) / 1e3
+                           if spans else 0.0),
+        "streams": len(streams),
+        "device_idle_share": (idle if spans and min(idle) >= 0 else
+                              "not measured: " + (
+                                  "no device events" if not spans else
+                                  f"busy {busy_ms} ms exceeds a wall time "
+                                  f"of {walls} ms")),
         "gemm_ms_per_step": gemm_ms / 1e3 / n_prof,
         "kernels_per_step": n_kernels / n_prof,
         "group_ms_per_step": groups,
@@ -6296,6 +6338,409 @@ def phase_mlm_pretrain(workdir: Path, card):
         raise AssertionError("mlm_pretrain: " + "; ".join(failures))
 
 
+# -- phase 18 -------------------------------------------------------------
+
+#: phase 18: Taiyi Stable Diffusion at full SD-1.x width. The text tower
+#: is BERT-base (IDEA-CCNL/Taiyi-Stable-Diffusion-1B-Chinese-v0.1's
+#: text_encoder: hidden 768, 12 layers, 12 heads, FFN 3072, vocab 21128);
+#: the UNet and VAE are SDUNetConfig's and SDVAEConfig's defaults (its
+#: unet/ and vae/). Everything runs in fp32 (TF32 off, as the whole smoke
+#: runs), so MFU is taken against FP32_FLOPS.
+SD_TEXT = dict(vocab_size=21128, hidden_size=768, num_hidden_layers=12,
+               num_attention_heads=12, intermediate_size=3072,
+               max_position_embeddings=512, dtype="float32")
+SD_IMAGE, SD_SEQ = 512, 77
+#: rows wanted per step (the probe may cut them), steps, the profiled
+#: step (--profile_steps 3,4 traces step 4; steps 2-3 give the step time)
+SD_BATCH, SD_STEPS, SD_PROFILE = 8, 4, (3, 4)
+#: the demo's denoise steps: 20, not the demo's 50, for the time limit
+SD_SAMPLE_STEPS, SD_GUIDANCE = 20, 7.5
+#: the serving pipeline's steps and the engine's batch
+SD_SERVE_STEPS, SD_SERVE_BATCH = 4, 2
+#: a small SD-1.x forward on the card against the same on the CPU, fp32
+#: with TF32 off: the products differ only in summation order (~1e-6)
+SD_CPU_RTOL = 1e-4
+SD_MIN_FREE_GIB = 60
+SD_UNET_PARAMS = 859_520_964
+SD_VAE_PARAMS = 83_653_863
+
+
+class CaptionTokenizer:
+    """One id per character, BERT-Chinese style: ``[CLS]`` 101 ... ``[SEP]``
+    102, characters in [106, vocab), padding 0; the collator's HF-style
+    call and the demo's and the pipeline's ``encode``."""
+
+    pad_token_id = 0
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def encode(self, text: str) -> list:
+        return [101] + [106 + ord(c) % (self.vocab - 106)
+                        for c in text] + [102]
+
+    def __call__(self, texts, padding=None, truncation=None,
+                 max_length=None, return_tensors=None):
+        import numpy as np
+        ids = np.zeros((len(texts), max_length), np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for i, text in enumerate(texts):
+            row = self.encode(text)[:max_length]
+            ids[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def sd_samples(n: int, rng) -> list:
+    """Caption + decoded-image samples made from a seed (the card's
+    machine has no Pillow): smooth colour fields in [0, 1]."""
+    import numpy as np
+    chars = "一只橘猫坐在窗台上看雨山水画中的小船飞流直下三千尺油画"
+    out = []
+    yy, xx = np.mgrid[0:SD_IMAGE, 0:SD_IMAGE].astype(np.float32) / SD_IMAGE
+    for _ in range(n):
+        a, b, c = rng.uniform(0.5, 4.0, 3)
+        img = np.stack([0.5 + 0.5 * np.sin(a * np.pi * xx + c),
+                        0.5 + 0.5 * np.cos(b * np.pi * yy),
+                        0.5 + 0.5 * np.sin(a * xx * yy * np.pi * b)], -1)
+        caption = "".join(rng.choice(list(chars), rng.randint(6, 30)))
+        out.append({"caption": caption,
+                    "pixels": img.astype(np.float32)})
+    return out
+
+
+def sd_small_cuda_vs_cpu() -> dict:
+    """The SD-1.x test towers' ``__call__`` and ``decode_image`` on the
+    card against the same weights and inputs on the CPU."""
+    import numpy as np
+    import torch
+    from fengshen_tpu_torch.models.bert import BertConfig
+    from fengshen_tpu_torch.models.stable_diffusion import (
+        SDUNetConfig, SDVAEConfig, TaiyiStableDiffusion)
+    text = BertConfig.small_test_config(dtype="float32",
+                                        hidden_dropout_prob=0.0,
+                                        attention_probs_dropout_prob=0.0)
+    cpu = TaiyiStableDiffusion(text, SDVAEConfig.small_test_config(),
+                               SDUNetConfig.small_test_config(),
+                               device="cpu",
+                               generator=torch.Generator().manual_seed(5))
+    card = TaiyiStableDiffusion(text, SDVAEConfig.small_test_config(),
+                                SDUNetConfig.small_test_config(),
+                                device="cuda", init=False)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(18)
+    ids = torch.tensor(rng.randint(3, 128, (2, 8)))
+    pixels = torch.tensor(rng.uniform(-1, 1, (2, 3, 32, 32)),
+                          dtype=torch.float32)
+    t = torch.tensor([3, 900])
+    noise, post = (torch.tensor(rng.randn(2, 4, 16, 16),
+                                dtype=torch.float32) for _ in range(2))
+
+    def run(model, dev):
+        with torch.no_grad():
+            pred, lat = model(ids.to(dev), pixels.to(dev), t.to(dev),
+                              noise.to(dev), posterior_noise=post.to(dev))
+            return pred.cpu(), model.decode_image(lat).cpu()
+
+    want, got = run(cpu, "cpu"), run(card, "cuda")
+    rel = [((g - w).norm() / w.norm()).item() for g, w in zip(got, want)]
+    return {"pred_rel_l2": rel[0], "decode_rel_l2": rel[1],
+            "rtol": SD_CPU_RTOL}
+
+
+def sd_step_flops(module, batch: dict) -> dict:
+    """FLOPs of one training step at ``batch``'s rows, from
+    ``FlopCounterMode`` over one row (every op is linear in the rows):
+    the whole step (VAE encode and text tower without autograd, UNet
+    forward and backward, the loss), and the UNet's forward and backward
+    alone on that row's shapes."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    rows = batch["pixel_values"].shape[0]
+    one = {k: v[:1] for k, v in batch.items()}
+    model = module.model
+    with FlopCounterMode(display=False) as step:
+        loss, _ = module.training_loss(one)
+        loss.backward()
+    shape = (1,) + tuple(model.vae_config.latent_shape(
+        one["pixel_values"].shape[2]))
+    with torch.no_grad():
+        text = model.encode_text(one["input_ids"], one["attention_mask"])
+    noisy = torch.randn(shape, device=text.device)
+    with FlopCounterMode(display=False) as unet:
+        pred = model.unet(noisy, torch.tensor([500], device=text.device),
+                          text)
+        pred.float().square().mean().backward()
+    for p in model.parameters():
+        p.grad = None
+    return {"step_flops": step.get_total_flops() * rows,
+            "unet_flops": unet.get_total_flops() * rows,
+            "flops_counted_at_rows": 1, "rows": rows}
+
+
+def phase_taiyi_sd(workdir: Path, card):
+    """18: Taiyi Stable Diffusion at full SD-1.x width and depth. (a) the
+    SD-1.x test towers on the card against the CPU; (b)
+    ``finetune.main`` with ``--faithful_towers`` for SD_STEPS steps of
+    512 px images and 77-token captions made from a seed, the batch by
+    the memory probe, step 3 profiled: losses finite, the UNet moved, the
+    text tower and VAE bitwise unchanged; step time, peak memory, the
+    step's FLOPs (``FlopCounterMode``), MFU against FP32_FLOPS, idle
+    share; (c) ``demo.main`` on the trained module at 512 px, CFG 7.5,
+    SD_SAMPLE_STEPS steps; (d) the module behind ``Pipeline``
+    (SD_SERVE_STEPS steps), ``BatchImageEngine(max_batch=2)`` and the
+    stdlib server: ``/healthz`` 503 then 200, three concurrent POSTs of
+    [512, 512, 3] uint8 images, a batch of 2 in ``/stats``, the drain.
+    No checkpoint is written on the card (the CPU tests pin save and
+    resume). K1-K4 launch 0 times."""
+    import base64
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from fengshen_tpu_torch.api.main import (PipelineConfig, ServerConfig,
+                                             _start_warmup_thread,
+                                             build_stdlib_server, drain)
+    from fengshen_tpu_torch.data.clip_dataloader import SDCollator
+    from fengshen_tpu_torch.examples.finetune_taiyi_stable_diffusion \
+        import finetune
+    from fengshen_tpu_torch.examples.stable_diffusion_chinese import demo
+    from fengshen_tpu_torch.models.bert import BertConfig
+    from fengshen_tpu_torch.ops.kernels import reset_launch_counts
+    from fengshen_tpu_torch.pipelines.image_generation import Pipeline
+    from fengshen_tpu_torch.serving import BatchImageEngine
+
+    t_phase = time.perf_counter()
+    failures = []
+    free, disk = check_room("taiyi_sd", workdir, SD_MIN_FREE_GIB, 1)
+    reset_launch_counts()
+    small = sd_small_cuda_vs_cpu()
+    if max(small["pred_rel_l2"], small["decode_rel_l2"]) > SD_CPU_RTOL:
+        failures.append(f"small towers, card vs CPU: {small}")
+
+    text_dir = workdir / "taiyi_text"
+    BertConfig(**SD_TEXT).save_pretrained(str(text_dir))
+    tok = CaptionTokenizer(SD_TEXT["vocab_size"])
+    rng = np.random.RandomState(18)
+    argv = [str(x) for x in (
+        "--model_path", text_dir, "--faithful_towers", "--image_size",
+        SD_IMAGE, "--max_length", SD_SEQ, "--learning_rate", 1e-5,
+        "--weight_decay", 0.1, "--warmup_steps", 0, "--scheduler_type",
+        "constant", "--log_every_n_steps", 1, "--seed", 1234,
+        "--default_root_dir", workdir / "taiyi_runs", "--device", "cuda",
+        *no_checkpoints(workdir / "taiyi_ckpt"))]
+    # (b) the memory probe on a model of the fit's geometry
+    probe_args = finetune.parser().parse_args(argv)
+    probe = finetune.TaiyiSDModule(probe_args, device="cuda")
+    probe.init_params(torch.Generator(device="cuda").manual_seed(17))
+    n_params = {name: sum(p.numel() for p in getattr(probe.model, name)
+                          .parameters())
+                for name in ("unet", "vae", "text_encoder")}
+    if (n_params["unet"], n_params["vae"]) != (SD_UNET_PARAMS,
+                                               SD_VAE_PARAMS):
+        raise AssertionError(f"taiyi_sd: parameter counts {n_params}")
+    collate = SDCollator(tok, image_size=SD_IMAGE, max_length=SD_SEQ)
+    probe_rows = sd_samples(max(PROBE_ROWS), rng)
+    plan = reckon_batch(probe, lambda n: collate(probe_rows[:n]), SD_BATCH)
+    del probe
+    batch = plan["batch"]
+    samples = sd_samples(batch * SD_STEPS, rng)
+    snapshot = {}
+    real_init = finetune.TaiyiSDModule.init_params
+
+    def init_and_snapshot(module, generator):
+        model = real_init(module, generator)
+        snapshot["module"] = module
+        snapshot["towers"] = {k: v.clone() for k, v in model.state_dict()
+                              .items() if not k.startswith("unet.")}
+        snapshot["unet"] = {k: v.clone() for k, v in list(
+            model.unet.state_dict().items())[::97]}
+        return model
+
+    with mock.patch.object(finetune.TaiyiSDModule, "init_params",
+                           init_and_snapshot):
+        trainer, fit_s = run_fit(finetune.main, argv + [
+            "--train_batchsize", str(batch), "--max_steps", str(SD_STEPS),
+            "--profile_steps", ",".join(map(str, SD_PROFILE))],
+            tokenizer=tok, datasets={"train": samples})
+    model = trainer.state.model
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = [e for e in trainer.history if "loss" in e and
+             "step_time_s" in e]
+    losses = [e["loss"] for e in steps]
+    profiled = set(range(SD_PROFILE[0] + 1, SD_PROFILE[1] + 1))
+    step_s = float(np.median([e["step_time_s"] for e in steps
+                              if e["step"] >= 2 and
+                              e["step"] not in profiled]))
+    state = model.state_dict()
+    towers_same = all(torch.equal(state[k], v)
+                      for k, v in snapshot["towers"].items())
+    unet_moved = sum(not torch.equal(model.unet.state_dict()[k], v)
+                     for k, v in snapshot["unet"].items())
+    module = snapshot.pop("module")
+    del snapshot
+    for p in model.parameters():
+        p.grad = None
+    trainer.state.optimizer = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = {k: torch.as_tensor(v).to("cuda")
+             for k, v in collate(samples[:batch]).items()}
+    flops = sd_step_flops(module, check)
+    del check
+    train = {
+        "steps": len(steps), "batch": batch, "memory_plan": plan,
+        "fit_s": fit_s, "step1_s": steps[0]["step_time_s"],
+        "step_time_s_median": step_s,
+        "step_time_s": [e["step_time_s"] for e in steps],
+        "images_per_s": batch / step_s, "losses": losses,
+        "peak_memory_gib": peak_gib, **flops,
+        "unet_mfu_fp32": flops["unet_flops"] / step_s / FP32_FLOPS,
+        "step_mfu_fp32": flops["step_flops"] / step_s / FP32_FLOPS,
+        "fp32_peak_flops": FP32_FLOPS,
+        "profile": step_profile(trainer, profiled),
+        "towers_bitwise_unchanged": towers_same,
+        "unet_sampled_tensors_moved":
+            f"{unet_moved}/{len(range(0, len(model.unet.state_dict()), 97))}",
+        "params": n_params}
+    if len(losses) != SD_STEPS or not np.isfinite(losses).all():
+        failures.append(f"losses {losses}")
+    if not towers_same:
+        failures.append("the frozen text tower or VAE changed")
+    if unet_moved == 0:
+        failures.append("the UNet did not move")
+    ckpt_files = [str(f) for f in (workdir / "taiyi_ckpt").rglob("*")
+                  if f.is_file()]
+    train["checkpoint_files"] = len(ckpt_files)
+    if ckpt_files:
+        failures.append(f"the fit wrote a checkpoint: {ckpt_files[:3]}")
+
+    # (c) the demo on the trained module
+    marks = []
+
+    def mark_step(i):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images = demo.main(["--prompt", "飞流直下三千尺，油画",
+                        "--guidance_scale", str(SD_GUIDANCE), "--out",
+                        str(workdir / "taiyi.png")], model=model,
+                       tokenizer=tok, image_size=SD_IMAGE,
+                       num_steps=SD_SAMPLE_STEPS,
+                       generator=torch.Generator().manual_seed(0),
+                       step_callback=mark_step)
+    sample_s = time.perf_counter() - t0
+    step_ms = np.diff([t0] + marks) * 1e3
+    sampling = {"steps": SD_SAMPLE_STEPS, "guidance_scale": SD_GUIDANCE,
+                "image_shape": list(images.shape), "total_s": sample_s,
+                "denoise_ms_per_step_median": float(np.median(step_ms[1:])),
+                "first_step_ms": float(step_ms[0]),
+                "text_and_decode_s": sample_s - float(step_ms.sum()) / 1e3,
+                "pixel_mean": float(images.mean()),
+                "pixel_std": float(images.std())}
+    if images.shape != (1, SD_IMAGE, SD_IMAGE, 3) or \
+            not np.isfinite(images).all() or images.min() < 0 or \
+            images.max() > 1:
+        failures.append(f"demo image {sampling}")
+
+    # (d) served over HTTP
+    pipe = Pipeline(module=model, tokenizer=tok, image_size=SD_IMAGE,
+                    num_inference_steps=SD_SERVE_STEPS, max_text_len=SD_SEQ,
+                    seed=0)
+    engine = BatchImageEngine(pipe, max_batch=SD_SERVE_BATCH,
+                              gather_ms=500.0)
+    gate, warm = threading.Event(), engine.warmup
+
+    def gated_warmup():
+        gate.wait(60)
+        return warm()
+
+    engine.warmup = gated_warmup
+    server_cfg = ServerConfig(host="127.0.0.1", port=0,
+                              engine="batch_image", request_timeout_s=300)
+    pipe_cfg = PipelineConfig(task="image_generation")
+    ready = _start_warmup_thread(server_cfg, pipe_cfg, pipe, engine)
+    draining = threading.Event()
+    server = build_stdlib_server(server_cfg, pipe_cfg, pipeline=pipe,
+                                 engine=engine, ready=ready,
+                                 draining=draining)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    serving = {}
+    try:
+        serving["healthz_before_warmup"] = http_json(port, "/healthz")[0]
+        gate.set()
+        if not ready.wait(300):
+            raise AssertionError("taiyi_sd: the engine never warmed up")
+        serving["healthz_after_warmup"] = http_json(port, "/healthz")[0]
+        serving["warmup_s"] = engine.stats()["warmup_s"]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            answers = list(pool.map(lambda i: http_json(
+                port, "/api/image_generation",
+                {"input_text": f"第{i}幅山水画", "request_id": f"sd-{i}"}),
+                range(3)))
+        serving["three_requests_s"] = time.perf_counter() - t0
+        shapes = []
+        for code, body in answers:
+            raw = base64.b64decode(body["result"]["image_b64"]) \
+                if code == 200 else b""
+            shapes.append((code, body.get("engine_type"),
+                           body.get("result", {}).get("shape"),
+                           body.get("result", {}).get("dtype"), len(raw)))
+        serving["answers"] = shapes
+        stats = http_json(port, "/stats")[1]
+        serving["stats"] = {k: stats[k] for k in (
+            "requests_total", "batches_total", "avg_batch", "max_batch")}
+        # the drain, with one request in flight
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+        inflight = pool.submit(http_json, port, "/api/image_generation",
+                               {"input_text": "最后一幅"})
+        deadline = time.monotonic() + 60
+        while engine.idle() and time.monotonic() < deadline:
+            time.sleep(0.005)
+        waiter = drain(server, draining, engine=engine,
+                       drain_timeout_s=120, poll_s=0.01)
+        late = http_json(port, "/api/image_generation",
+                         {"input_text": "太晚了"})
+        serving["late_post"] = [late[0], late[1].get("reason")]
+        serving["inflight_post"] = inflight.result(300)[0]
+        pool.shutdown()
+        waiter.join(300)
+        serving["drained"] = not waiter.is_alive()
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+    want = [(200, "batch_image", [SD_IMAGE, SD_IMAGE, 3], "uint8",
+             SD_IMAGE * SD_IMAGE * 3)] * 3
+    if serving["healthz_before_warmup"] != 503 or \
+            serving["healthz_after_warmup"] != 200 or \
+            serving["answers"] != want or \
+            serving["stats"]["batches_total"] != 2 or \
+            serving["stats"]["avg_batch"] != 1.5 or \
+            serving["late_post"] != [503, "draining"] or \
+            serving["inflight_post"] != 200 or not serving["drained"]:
+        failures.append(f"serving {serving}")
+    launches = kernel_launches()
+    if any(launches.values()):
+        failures.append(f"kernel launches on the SD paths: {launches}")
+    say("taiyi_sd_small_card_vs_cpu", card=card, **small)
+    say("taiyi_sd_train", card=card, image=SD_IMAGE, seq=SD_SEQ,
+        text=SD_TEXT, **train)
+    say("taiyi_sd_sample", card=card, image=SD_IMAGE, **sampling)
+    say("taiyi_sd_serve", card=card, steps=SD_SERVE_STEPS, **serving)
+    del model, trainer, pipe, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("taiyi_sd", card=card, device_free_gib=free, disk_free_gib=disk,
+        kernel_launches=launches, phase_s=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("taiyi_sd: " + "; ".join(failures))
+
+
 def main() -> int:
     try:
         import torch
@@ -6382,6 +6827,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_mlm_pretrain(Path(tmp), card)
         mark("17_mlm_pretrain")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_taiyi_sd(Path(tmp), card)
+        mark("18_taiyi_sd")
     from fengshen_tpu_torch.ops.kernels import get_entry
     entry = get_entry("decode_attention")
     main_row = rows[("paged", 1)]

@@ -7,9 +7,13 @@ A JSON config names the server options (SERVER), engine overrides
 
     python -m fengshen_tpu_torch.api.main --config server.json
 
-SERVER ``engine`` is ``"continuous"`` (the continuous-batching engine)
-or ``"simple"`` (one ``Pipeline.__call__`` per POST, behind a lock).
-The server answers, as the reference's does:
+SERVER ``engine`` is ``"continuous"`` (the continuous-batching engine),
+``"simple"`` (one ``Pipeline.__call__`` per POST, behind a lock) or
+``"batch_image"`` (the micro-batch engine of ``serving/multimodal.py``
+over PIPELINE ``task`` ``"image_generation"``: ``POST
+/api/image_generation`` answers ``{"result": {"image_b64", "shape",
+"dtype"}, "request_id", "engine_type"}``). The server answers, as the
+reference's does:
 
 - ``POST /api/<task>`` with ``{"input_text", "max_new_tokens",
   "request_id", "traceparent", "resume_tokens", "resume_source"}``;
@@ -35,7 +39,7 @@ port; the bound one is printed).
 
 Not yet ported (raising ``NotImplementedError``): SERVER ``phase`` other
 than "both", ``peers`` (live evacuation), the AOT section, the
-``batch_image`` and ``embedding`` engines, and the fastapi app.
+``embedding`` engine (its pipeline is not ported), and the fastapi app.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ class ServerConfig:
     ``log_level`` is kept for the reference's configs: the reference
     hands it to uvicorn, and its stdlib server, like this one, has no
     log for it to level. Features not yet ported (fleet phases,
-    evacuation peers, the AOT cache, the micro-batch engines) raise
+    evacuation peers, the AOT cache, the ``embedding`` engine) raise
     ``NotImplementedError``."""
 
     host: str = "0.0.0.0"
@@ -73,11 +77,12 @@ class ServerConfig:
     aot_args: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
-        if self.engine in ("batch_image", "embedding"):
+        if self.engine == "embedding":
             raise NotImplementedError(
                 f"engine {self.engine!r} is not yet ported; the port "
-                "serves through engine 'continuous' or 'simple'")
-        if self.engine not in ("simple", "continuous"):
+                "serves through engine 'continuous', 'simple' or "
+                "'batch_image'")
+        if self.engine not in ("simple", "continuous", "batch_image"):
             raise ValueError(f"unknown engine {self.engine!r}; expected "
                              "'simple', 'continuous', 'batch_image' or "
                              "'embedding'")
@@ -465,6 +470,49 @@ def _simple_generate(engine: SimpleEngine, req: dict) -> tuple[int, dict]:
         return 422, {"error": str(e)}
 
 
+def _multimodal_generate(engine, req: dict,
+                         timeout_s: float) -> tuple[int, dict]:
+    """One HTTP request through a micro-batch engine (``:509``): queue
+    full -> 429, draining -> 503 with its reason, a live duplicate
+    ``request_id`` -> 409, a bad input -> 422, a timeout, a failed batch
+    or a stopped engine -> 503. The 200 body carries the pipeline's
+    result and the ``engine_type`` a router places on."""
+    from fengshen_tpu_torch.serving import (Draining, DuplicateRequest,
+                                            EngineStopped, QueueFull)
+    from fengshen_tpu_torch.serving.multimodal import MM_FINISHED
+    rid = req.get("request_id")
+    try:
+        request = engine.submit(req["input_text"],
+                                request_id=None if rid is None
+                                else str(rid))
+    except EngineStopped as e:
+        return 503, {"error": str(e), "reason": "engine_stopped"}
+    except Draining as e:
+        return 503, {"error": str(e), "reason": "draining"}
+    except DuplicateRequest as e:
+        return 409, {"error": str(e)}
+    except QueueFull as e:
+        return 429, {"error": str(e)}
+    except (ValueError, TypeError) as e:
+        return 422, {"error": str(e)}
+    if not request.wait(timeout=timeout_s):
+        engine.cancel(request.request_id)
+        # the batch may have landed between the wait and the cancel: a
+        # finished result is not discarded as a timeout
+        if request.state != MM_FINISHED:
+            return 503, {"error": f"request timed out after {timeout_s}s"}
+    if request.state != MM_FINISHED:
+        return 503, {"error": f"request {request.state} ({request.error})"}
+    return 200, {"result": request.result,
+                 "request_id": request.request_id,
+                 "engine_type": engine.engine_type}
+
+
+def _is_multimodal(engine) -> bool:
+    from fengshen_tpu_torch.serving.multimodal import BatchImageEngine
+    return isinstance(engine, BatchImageEngine)
+
+
 def build_stdlib_server(server_cfg: ServerConfig,
                         pipeline_cfg: PipelineConfig, pipeline=None,
                         engine=None, ready=None, recorder=None,
@@ -484,6 +532,7 @@ def build_stdlib_server(server_cfg: ServerConfig,
     inflight_lock = threading.Lock()
     inflight = [0]
     simple = isinstance(engine, SimpleEngine)
+    multimodal = _is_multimodal(engine)
 
     class Handler(http.server.BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
@@ -623,6 +672,9 @@ def build_stdlib_server(server_cfg: ServerConfig,
             try:
                 if simple:
                     code, body = _simple_generate(engine, req)
+                elif multimodal:
+                    code, body = _multimodal_generate(
+                        engine, req, server_cfg.request_timeout_s)
                 else:
                     code, body = _engine_generate(
                         engine, pipeline, req, server_cfg.request_timeout_s)
@@ -759,10 +811,12 @@ def _start_warmup_thread(server_cfg: ServerConfig,
                           flush=True)
             else:
                 dt = engine.warmup()
-                print(f"[serving] continuous engine warmup "
-                      f"(buckets={list(engine.ladder.buckets)}, "
-                      f"num_slots={engine.config.num_slots}) ready in "
-                      f"{dt:.1f}s", flush=True)
+                shape = (f"max_batch={engine.max_batch}"
+                         if _is_multimodal(engine) else
+                         f"buckets={list(engine.ladder.buckets)}, "
+                         f"num_slots={engine.config.num_slots}")
+                print(f"[serving] {engine.engine_type} engine warmup "
+                      f"({shape}) ready in {dt:.1f}s", flush=True)
         except Exception as e:  # noqa: BLE001 - stop, report, never serve
             print(f"[serving] warmup failed ({type(e).__name__}: {e}); "
                   "the engine is stopped and /healthz answers 503",
@@ -779,11 +833,15 @@ def _start_warmup_thread(server_cfg: ServerConfig,
 
 def _resolve_pipeline(pipeline_cfg: PipelineConfig, device=None):
     """The pipeline a config names (``:804``): ``Pipeline(model=...,
-    **pipeline_args)``, ``model`` an HF checkpoint directory and every
-    other PIPELINE key a pipeline argument (``seed`` the sampling
-    seed)."""
-    from fengshen_tpu_torch.pipelines.text_generation import Pipeline
-    if pipeline_cfg.task != "text_generation":
+    **pipeline_args)`` of ``pipelines/<task>.py``, ``model`` an HF
+    checkpoint directory and every other PIPELINE key a pipeline
+    argument (``seed`` the sampling seed). The tasks are
+    ``text_generation`` and ``image_generation``; others raise."""
+    if pipeline_cfg.task == "text_generation":
+        from fengshen_tpu_torch.pipelines.text_generation import Pipeline
+    elif pipeline_cfg.task == "image_generation":
+        from fengshen_tpu_torch.pipelines.image_generation import Pipeline
+    else:
         raise NotImplementedError(
             f"task {pipeline_cfg.task!r} is not yet ported")
     return Pipeline(args=None, model=pipeline_cfg.model, device=device,
@@ -808,6 +866,12 @@ def main(argv=None) -> None:
     if server_cfg.engine == "continuous":
         engine = create_continuous_engine(pipeline, server_cfg.engine_args,
                                           recorder=recorder)
+    elif server_cfg.engine == "batch_image":
+        # no slot pool and no KV handoff (``:1251``); warmup and start
+        # run on the background thread below
+        from fengshen_tpu_torch.serving import create_multimodal_engine
+        engine = create_multimodal_engine(server_cfg.engine, pipeline,
+                                          server_cfg.engine_args)
     else:
         engine = SimpleEngine(pipeline)
     ready = _start_warmup_thread(server_cfg, pipeline_cfg, pipeline, engine)

@@ -6,6 +6,9 @@ from fengshen_tpu_torch.serving.engine import (
     CANCELLED, EXPIRED, FINISHED, QUEUED, REJECTED, RUNNING,
     ContinuousBatchingEngine, Draining, DuplicateRequest, EngineConfig,
     EngineStopped, PromptTooLong, QueueFull, Request)
+from fengshen_tpu_torch.serving.multimodal import (BatchImageEngine,
+                                                   MMRequest,
+                                                   create_multimodal_engine)
 from fengshen_tpu_torch.serving.paged_cache import (BlockAllocator,
                                                     assign_paged,
                                                     assign_slot_quantized,
@@ -18,4 +21,5 @@ __all__ = ["DEFAULT_BUCKETS", "BucketLadder", "assign_slot",
            "ContinuousBatchingEngine", "Draining", "DuplicateRequest",
            "EngineConfig", "EngineStopped",
            "PromptTooLong", "QueueFull", "Request", "BlockAllocator", "assign_paged",
-           "assign_slot_quantized", "blocks_for_tokens", "init_pool_cache"]
+           "assign_slot_quantized", "blocks_for_tokens", "init_pool_cache",
+           "BatchImageEngine", "MMRequest", "create_multimodal_engine"]

@@ -1,7 +1,9 @@
 """KV-cached generation, sampling and speculative decoding: the port of
 ``fengshen_tpu/utils/generate.py`` (filters :26-150, ``generate`` :152,
 ``_rollback_cache`` :241, ``_prefill_cache`` :256, speculative decoding
-and prompt lookup :278-677).
+and prompt lookup :278-677), and its seq2seq decoding: greedy and
+sampled :func:`seq2seq_generate`, :func:`seq2seq_beam_search` and
+:func:`seq2seq_predict_step`.
 
 The reference runs each decode loop as one ``lax.scan`` or
 ``lax.while_loop`` inside jit; here each is a Python loop of eager
@@ -10,8 +12,10 @@ forwards over a lockstep :class:`KVCache` with a scalar cursor.
 Random draws come from :mod:`.rng`: a draw is a pure function of the
 call's ``seed``, the row and a draw counter, so sampled output cannot
 match the reference's threefry bits; it matches its distributions (the
-tests hold both to ``_spec_dist``'s exact probabilities). Seq2seq and
-beam search are not yet ported.
+tests hold both to ``_spec_dist``'s exact probabilities). Not yet
+ported: the causal-LM helpers ``sample_sequence_batch`` and
+``generate_with_prompts`` (``fengshen_tpu/utils/generate.py:1137``,
+``:1157``).
 """
 
 from __future__ import annotations

@@ -511,11 +511,11 @@ def test_reference_config_fields_all_load():
             EngineConfig(**kw)
     for kw in (dict(drain_timeout_s=5.0), dict(dump_dir="/tmp/x"),
                dict(log_level="debug"), dict(engine="simple"),
-               dict(engine="continuous")):
+               dict(engine="continuous"), dict(engine="batch_image")):
         assert dataclasses.asdict(ServerConfig(**kw)).items() >= kw.items()
     for kw in (dict(phase="prefill"), dict(peers=("http://a:1",)),
                dict(aot_args={"cache_dir": "d"}),
-               dict(engine="batch_image")):
+               dict(engine="embedding")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ServerConfig(**kw)
     with pytest.raises(ValueError):
